@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Bring-up check of the PyTorch port on one CUDA card.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught):
+  1. print the card (nvidia-smi) and torch; build the CUDA kernels from
+     `orb_slam2_ssd_semantic_tpu_torch/csrc/` with nvcc (one process per
+     source, all at once) into `build/torch_kernels/`;
+  2. the window matcher (B1) against its plain PyTorch version at the main
+     path's shapes: all four outputs exactly equal;
+  3. the SPD solve (B2) against its plain version and an f64 solve, with
+     the Pallas kernel tests' tolerances;
+  4. the main path: `Tracker.process` on a rendered synthetic RGB-D
+     sequence at 640x480 with the default config (loop closing and
+     relocalization off), long enough for local mapping to run; checks
+     ATE, tracking status, map size, and that B1 launched;
+  5. local mapping at a 12 + 8 keyframe window (6 * 20 = 120 unknowns, the
+     size at which local BA routes its reduced camera system to B2) on the
+     phase-4 map; checks that B2 launched and that the refined poses agree
+     with the same step forced through B2's plain version;
+  6. one JSON line of per-kernel numbers, the card's name and power limit,
+     and the result line last.
+
+Without a CUDA card it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import multiprocessing
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from orb_slam2_ssd_semantic_tpu_torch.config import SlamConfig
+from orb_slam2_ssd_semantic_tpu_torch.eval.ate import evaluate_ate_xyz
+from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import SyntheticSequence
+from orb_slam2_ssd_semantic_tpu_torch.mapping.local_mapping import local_mapping_step
+from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build, cuda_match, cuda_solve
+from orb_slam2_ssd_semantic_tpu_torch.ops.match import window_mask
+from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
+from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
+
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
+# CUDA-core float32 rate, used here for every scalar operation the
+# kernels do (integer XOR/popcount/add and float compares): an
+# optimistic bound, since popcount issues at a quarter of that rate.
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
+
+# Main path: frames of the default orbit sequence. The default config
+# inserts a keyframe every 30 frames on this gentle trajectory, so 96
+# frames give keyframes at frames 0, 31, 62 and 93: local mapping (which
+# starts at the third keyframe) runs twice.
+N_FRAMES = 96
+# Steady frames (no keyframe) traced with torch.profiler for the device
+# breakdown; they are left out of the per-frame timing statistics.
+PROFILE_FRAMES = range(40, 45)
+B1_SHAPES = ((2048, 1024), (1024, 1024), (512, 128))
+B2_SIZES = (6, 96, 120, 128)
+B2_MAIN_N = 120
+SPD_RTOL, SPD_ATOL, SPD_RESID, SPD_RESID_ILL = 2e-2, 2e-3, 1e-3, 5e-2
+# Phase 5: the same local-mapping step with B2 and with its plain version.
+# Both are f32 eliminations of the same damped system (per-solve
+# difference ~1e-6 relative); up to 15 Gauss-Newton iterations amplify
+# it. Sound runs on an H100 differed by at most 6.2e-5 (metres /
+# rotation-matrix entries), so poses are held to about three times that.
+# The step must move some pose by at least 4x the limit, or the
+# comparison could pass with a solve that does nothing.
+POSE_ATOL = 2e-4
+POSE_MIN_MOVE = 4 * POSE_ATOL
+
+
+def _log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Median over `rounds` of the mean CUDA-event time of `reps` calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return statistics.median(out)
+
+
+def _bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _reset_counts() -> None:
+    cuda_match.window_match.launches = 0
+    cuda_solve.spd_solve.launches = 0
+
+
+def _counts() -> dict:
+    return {"window_match": cuda_match.window_match.launches,
+            "spd_solve": cuda_solve.spd_solve.launches}
+
+
+# ---- phase 1 ---------------------------------------------------------------
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def build_kernels() -> float:
+    t0 = time.perf_counter()
+    logs = cuda_build.build_all(force=True)
+    secs = time.perf_counter() - t0
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                _log(f"  ptxas[{name}]: {line.strip()}")
+    _log(f"build: {len(logs)} kernels in {secs:.2f} s")
+    return secs
+
+
+# ---- phase 2: B1 -------------------------------------------------------------
+
+def _b1_problem(seed: int, q: int, t: int, dev):
+    """Targets are noisy copies of the queries' descriptors near their
+    predicted positions, so windowed matches, ties and duplicate claims
+    all occur, as on a tracked frame."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 2**32, (t, 8), dtype=np.uint32)
+    uv_t = rng.uniform(0, 640, (t, 2)).astype(np.float32)
+    src = rng.integers(0, t, q)
+    flips = (rng.random((q, 8, 32)) < 0.08) * (1 << np.arange(32, dtype=np.uint64))
+    desc_q = base[src] ^ flips.sum(-1).astype(np.uint32)
+    arrays = dict(
+        desc_q=desc_q.view(np.int32), desc_t=base.view(np.int32),
+        centers=(uv_t[src] + rng.normal(0, 3, (q, 2))).astype(np.float32), uv_t=uv_t,
+        radius=rng.uniform(5, 60, (q,)).astype(np.float32),
+        valid_q=rng.random(q) > 0.1, valid_t=rng.random(t) > 0.1,
+    )
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in arrays.items()}
+
+
+def check_b1(dev) -> dict:
+    rows = []
+    for i, (q, t) in enumerate(B1_SHAPES):
+        max_dist = 100 if q >= 1024 else 50
+        p = _b1_problem(100 + i, q, t, dev)
+        got = cuda_match.window_match(**p, max_dist=max_dist)
+        ref = cuda_match.window_match_reference(**p, max_dist=max_dist)
+        torch.cuda.synchronize()
+        err = 0
+        for name, a, b in zip(("best", "second", "idx", "key_min"), got, ref):
+            b = b.to(torch.int32)
+            if not torch.equal(a, b):
+                raise AssertionError(f"B1 {name} differs at Q={q} T={t}: "
+                                     f"{int((a != b).sum())} entries")
+            err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+        n_claimed = int((got[3] < cuda_match.BIG_KEY).sum())
+        if n_claimed == 0:
+            raise AssertionError(f"B1 check at Q={q} T={t} claimed no target")
+        # The kernel alone: the launch on buffers the wrapper's checks and
+        # allocations prepared once.
+        prepared, _ = cuda_match.prepare(**p, max_dist=max_dist)
+        ms = _time_ms(lambda: cuda_match.launch(prepared))
+        wrapper_ms = _time_ms(lambda: cuda_match.window_match(**p, max_dist=max_dist))
+        plain_ms = _time_ms(lambda: cuda_match.window_match_reference(**p, max_dist=max_dist),
+                            reps=5)
+        # Work this data needs: every pair takes the window and validity
+        # test and a top-2 update (~8 ops); only in-window pairs take the
+        # 8 XOR + 8 popcount + 8 add of the Hamming distance.
+        in_win = int(window_mask(p["centers"], p["uv_t"], p["radius"], p["valid_q"],
+                                 p["valid_t"]).sum())
+        n_ops = 8.0 * q * t + 24.0 * in_win
+        n_bytes = q * (32 + 8 + 4 + 1) + t * (32 + 8 + 1) + q * 12 + t * 4
+        bound, by = _bound_ms(n_bytes, n_ops)
+        row = dict(q=q, t=t, max_abs_err=err, claimed=n_claimed, in_window_pairs=in_win,
+                   ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        _log(f"B1 window_match Q={q} T={t}: exact (tolerance 0), {n_claimed} targets claimed; "
+             f"kernel {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+             f"bound {bound:.6f} ms ({by})")
+        rows.append(row)
+    return rows[0] | {"max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+# ---- phase 3: B2 -------------------------------------------------------------
+
+def _spd(rng, n: int, damp: float = 1e-3) -> np.ndarray:
+    a = rng.normal(0, 1, (n, n)).astype(np.float32)
+    a = a @ a.T
+    return a + np.diag(1e-3 * np.abs(np.diag(a)) + damp)
+
+
+def check_b2(dev) -> dict:
+    rng = np.random.default_rng(0)
+    main = None
+    for n in B2_SIZES:
+        a_np = _spd(rng, n)
+        b_np = rng.normal(0, 1, (n,)).astype(np.float32)
+        a, b = torch.from_numpy(a_np).to(dev), torch.from_numpy(b_np).to(dev)
+        x = cuda_solve.spd_solve(a, b)
+        x_plain = cuda_solve.spd_solve_reference(a, b)
+        torch.cuda.synchronize()
+        xk = x.cpu().numpy()
+        ref64 = np.linalg.solve(a_np.astype(np.float64), b_np.astype(np.float64))
+        resid = np.linalg.norm(a_np @ xk - b_np) / max(np.linalg.norm(b_np), 1e-9)
+        if resid >= SPD_RESID:
+            raise AssertionError(f"B2 n={n}: residual {resid:.3e} >= {SPD_RESID}")
+        np.testing.assert_allclose(xk, ref64, rtol=SPD_RTOL, atol=SPD_ATOL)
+        np.testing.assert_allclose(xk, x_plain.cpu().numpy(), rtol=SPD_RTOL, atol=SPD_ATOL)
+        err = float((x - x_plain).abs().max())
+        prepared, _ = cuda_solve.prepare(a, b)
+        ms = _time_ms(lambda: cuda_solve.launch(prepared))
+        wrapper_ms = _time_ms(lambda: cuda_solve.spd_solve(a, b))
+        plain_ms = _time_ms(lambda: cuda_solve.spd_solve_reference(a, b))
+        library_ms = _time_ms(lambda: torch.linalg.solve(a, b))
+        # What an SPD system of n unknowns needs, whatever the kernel does
+        # (Gauss-Jordan spends 2 n^3): a Cholesky factorisation, n^3 / 3
+        # flops, and two triangular solves, 2 n^2; A and b read once, x
+        # written once.
+        bound, by = _bound_ms(4.0 * (n * n + 2 * n), n**3 / 3.0 + 2.0 * n * n)
+        _log(f"B2 spd_solve n={n}: residual {resid:.2e}, max |kernel - plain| {err:.3e} "
+             f"(rtol {SPD_RTOL}, atol {SPD_ATOL}); kernel {ms:.4f} ms, wrapper "
+             f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg.solve "
+             f"{library_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+        if n == B2_MAIN_N:
+            main = dict(n=n, max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=bound, bound_by=by)
+    # The near-singular damped case of the Pallas kernel's tests.
+    n = 108
+    u = np.linalg.qr(rng.normal(0, 1, (n, n)))[0].astype(np.float32)
+    s = np.geomspace(1e4, 1e-2, n).astype(np.float32)
+    a_np = (u * s) @ u.T
+    a_np = a_np + np.diag(1e-3 * np.abs(np.diag(a_np)) + 1e-5)
+    b_np = rng.normal(0, 1, (n,)).astype(np.float32)
+    xk = cuda_solve.spd_solve(torch.from_numpy(a_np).to(dev),
+                              torch.from_numpy(b_np).to(dev)).cpu().numpy()
+    resid = np.linalg.norm(a_np @ xk - b_np) / np.linalg.norm(b_np)
+    if resid >= SPD_RESID_ILL:
+        raise AssertionError(f"B2 ill-conditioned: residual {resid:.3e} >= {SPD_RESID_ILL}")
+    _log(f"B2 spd_solve ill-conditioned n=108: residual {resid:.2e} (< {SPD_RESID_ILL})")
+    return main
+
+
+# ---- phase 4: the main path ------------------------------------------------------
+
+_SEQ = None
+
+
+def _render_init(n_frames: int) -> None:
+    global _SEQ
+    _SEQ = SyntheticSequence(n_frames=n_frames)
+
+
+def _render(i: int):
+    return _SEQ.gray_depth(i)
+
+
+def render_frames(n_frames: int):
+    """Render the sequence's frames in parallel worker processes (the
+    renderer is single-threaded numpy); returns (sequence, frames)."""
+    workers = max(1, min(8, os.cpu_count() or 1))
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers, initializer=_render_init, initargs=(n_frames,)) as pool:
+        frames = pool.map(_render, range(n_frames))
+    return SyntheticSequence(n_frames=n_frames), frames
+
+
+def main_path_config() -> SlamConfig:
+    base = SlamConfig()
+    return base.replace(loop=dataclasses.replace(base.loop, enabled=False,
+                                                 enable_relocalization=False))
+
+
+def _device_breakdown(prof, n_frames: int, frame_ms: float) -> dict:
+    """Per-frame device busy time and share, kernel launches, CUDA runtime
+    calls that copy or synchronise, and the kernels that take the most
+    device time, from a profiled window of `n_frames` frames. The share
+    is taken against the unprofiled median frame time `frame_ms`."""
+    busy_us, by_kernel, runtime = 0.0, {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy_us += us
+            k = by_kernel.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += us
+        elif e.name in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize",
+                        "cudaDeviceSynchronize"):
+            runtime[e.name] = runtime.get(e.name, 0) + 1
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
+    busy_ms = busy_us / 1e3 / n_frames
+    return dict(
+        device_busy_ms_per_frame=busy_ms, device_busy_share=busy_ms / frame_ms,
+        kernels_per_frame=sum(v[0] for v in by_kernel.values()) / n_frames,
+        runtime_calls_per_frame={k: v / n_frames for k, v in runtime.items()},
+        top_kernels=[dict(name=name[:80], per_frame=c / n_frames, ms_per_frame=us / 1e3 / n_frames)
+                     for name, (c, us) in top])
+
+
+def run_main_path(dev, n_frames: int = N_FRAMES) -> dict:
+    t0 = time.perf_counter()
+    seq, frames = render_frames(n_frames)
+    _log(f"rendered {n_frames} frames in {time.perf_counter() - t0:.1f} s")
+    cfg = main_path_config()
+    tracker = Tracker(cfg, device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    profiled = PROFILE_FRAMES if dev.type == "cuda" else range(0)
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA]
+                                  ) if len(profiled) else None
+    frame_ms = []
+    _reset_counts()
+    for i, (gray, depth) in enumerate(frames):
+        if i == profiled.start:
+            prof.start()
+        t = time.perf_counter()
+        tracker.process(gray, depth, float(seq.stamps[i]))
+        sync()
+        if i not in profiled:
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+        if len(profiled) and i == profiled[-1]:
+            prof.stop()
+    counts = _counts()
+    ate = evaluate_ate_xyz(tracker.camera_positions(), seq.gt_positions()).rmse
+    statuses = [s["status"] for s in tracker.stats[1:]]
+    ok_frac = statuses.count("OK") / len(statuses)
+    n_points = int(tracker.state.n_points)
+    lm_stage = tracker.metrics.stages.get("local_mapping")
+    n_lm = lm_stage.count if lm_stage is not None else 0
+    kf_frames = [i for i in range(1, len(tracker.stats))
+                 if tracker.stats[i]["kfs"] != tracker.stats[i - 1]["kfs"]]
+    res = dict(frames=n_frames, ate_m=ate, ok_frac=ok_frac, n_points=n_points,
+               n_kfs=int(tracker.state.n_kfs), keyframe_frames=kf_frames,
+               local_mapping_steps=n_lm, launches=counts,
+               median_frame_ms=statistics.median(frame_ms[1:]),
+               mean_frame_ms=statistics.mean(frame_ms[1:]), timed_frames=len(frame_ms) - 1,
+               b1_launches_per_frame=counts["window_match"] / (n_frames - 1))
+    _log("main path: " + json.dumps(res))
+    _log("main path stages (Tracker.metrics, host clock):\n" + tracker.metrics.report())
+    if len(profiled):
+        breakdown = _device_breakdown(prof, len(profiled), res["median_frame_ms"])
+        _log(f"profiled frames {profiled.start}-{profiled[-1]}: " + json.dumps(breakdown))
+        _log(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=12,
+                                       max_name_column_width=50))
+    if not ate < 0.01:
+        raise AssertionError(f"main path ATE {ate:.5f} m >= 0.01 m")
+    if not ok_frac >= 0.9:
+        raise AssertionError(f"main path OK fraction {ok_frac:.3f} < 0.9")
+    if not n_points >= 900:
+        raise AssertionError(f"main path map has {n_points} points < 900")
+    if n_lm < 1:
+        raise AssertionError("local mapping never ran on the main path")
+    if dev.type == "cuda" and counts["window_match"] == 0:
+        raise AssertionError("the main path never launched the window matcher")
+    return res | {"tracker": tracker}
+
+
+# ---- phase 5: B2 through local BA ----------------------------------------------
+
+def run_b2_path(tracker, dev) -> dict:
+    cfg = tracker.cfg
+    cfg5 = cfg.replace(map=dataclasses.replace(cfg.map, local_ba_window=12,
+                                               local_ba_fixed_anchors=8))
+    state = tracker.state
+    _reset_counts()
+    t = time.perf_counter()
+    with highest_precision():
+        out_kernel = local_mapping_step(state, cfg5)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    counts = _counts()
+    # The same step with B2's plain version swapped in for the kernel.
+    kernel_fn = cuda_solve.spd_solve
+    cuda_solve.spd_solve = cuda_solve.spd_solve_reference
+    try:
+        with highest_precision():
+            out_plain = local_mapping_step(state, cfg5)
+    finally:
+        cuda_solve.spd_solve = kernel_fn
+    live = out_kernel.kfs.valid
+    pose_err = float((out_kernel.kfs.T_cw[live] - out_plain.kfs.T_cw[live]).abs().max())
+    moved = float((out_kernel.kfs.T_cw[live] - state.kfs.T_cw[live]).abs().max())
+    res = dict(n_unknowns=6 * 20, launches=counts, step_ms=step_ms, pose_max_abs_err=pose_err,
+               pose_max_move=moved, live_keyframes=int(live.sum()))
+    _log("B2 through local BA: " + json.dumps(res))
+    if dev.type == "cuda" and counts["spd_solve"] == 0:
+        raise AssertionError("local BA at a 12 + 8 window never launched the SPD solve kernel")
+    if not moved >= POSE_MIN_MOVE:
+        raise AssertionError(f"local BA moved no pose by {POSE_MIN_MOVE} (max {moved:.3e}): "
+                             "the kernel-vs-plain comparison would be vacuous")
+    if not pose_err <= POSE_ATOL:
+        raise AssertionError(f"kernel vs plain local BA poses differ by {pose_err:.3e} "
+                             f"> {POSE_ATOL}")
+    return res
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    _log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    build_s = build_kernels()
+    b1 = check_b1(dev)
+    b2 = check_b2(dev)
+    main_res = run_main_path(dev)
+    b2_path = run_b2_path(main_res.pop("tracker"), dev)
+    kernels = [
+        dict(name="window_match", route="cuda",
+             source="orb_slam2_ssd_semantic_tpu_torch/csrc/window_match.cu",
+             replaces="orb_slam2_ssd_semantic_tpu/ops/pallas_match.py:104",
+             launches=main_res["launches"]["window_match"], max_abs_err=b1["max_abs_err"],
+             ms=b1["ms"], plain_ms=b1["plain_ms"], bound_ms=b1["bound_ms"],
+             bound_by=b1["bound_by"], library_ms=None, shape=[b1["q"], b1["t"]],
+             wrapper_ms=b1["wrapper_ms"], path="Tracker.process, default config"),
+        dict(name="spd_solve", route="cuda",
+             source="orb_slam2_ssd_semantic_tpu_torch/csrc/spd_solve.cu",
+             replaces="orb_slam2_ssd_semantic_tpu/ops/pallas_solve.py:79",
+             launches=b2_path["launches"]["spd_solve"], max_abs_err=b2["max_abs_err"],
+             ms=b2["ms"], plain_ms=b2["plain_ms"], bound_ms=b2["bound_ms"],
+             bound_by=b2["bound_by"], library_ms=b2["library_ms"], shape=[b2["n"]],
+             wrapper_ms=b2["wrapper_ms"], path="local_mapping_step, window 12 + 8"),
+    ]
+    _log(f"summary: build {build_s:.2f} s, main path median {main_res['median_frame_ms']:.2f} "
+         f"ms/frame over {main_res['timed_frames']} frames")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

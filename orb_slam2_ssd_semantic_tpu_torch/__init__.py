@@ -1,0 +1,21 @@
+"""PyTorch + CUDA port of the semantic RGB-D SLAM engine.
+
+Mirrors the layout of the JAX package `orb_slam2_ssd_semantic_tpu`
+(which stays the reference): each module here has its counterpart at the
+same path there. Plain tensor code is PyTorch; the JAX package's Pallas
+kernels are hand-written CUDA C++ for Hopper (`csrc/`, built with nvcc
+on first use, see `ops/cuda_match.py` and `ops/cuda_solve.py`).
+
+Importing this package loads neither JAX nor Triton, and nothing of the
+JAX package: the host-only modules it needs (`config`, `io/synthetic`,
+`io/tum`, `eval/ate`, `utils/metrics`) are kept as copies here.
+
+This slice covers RGB-D tracking with local mapping
+(`tracking.tracker.Tracker.process`). Loop closing, relocalization and
+dynamic masks come in later slices; the Tracker refuses configs that
+enable them.
+"""
+
+__version__ = "0.1.0"
+
+from orb_slam2_ssd_semantic_tpu_torch.config import SlamConfig  # noqa: F401

@@ -1,0 +1,168 @@
+"""SO(3)/SE(3) Lie-group utilities on tensors (counterpart of the JAX
+package's `geometry/se3.py`, the subset the tracking slice uses).
+
+Poses are world-to-camera 4x4 matrices `T_cw`; every function works over
+leading batch dims. Contractions run in full f32: the entry points turn
+TF32 off (`utils/precision.py`), the torch counterpart of the JAX
+module's per-call `Precision.HIGHEST`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """so(3) hat operator. w: (..., 3) -> (..., 3, 3)."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(wx)
+    return torch.stack(
+        [
+            torch.stack([z, -wz, wy], dim=-1),
+            torch.stack([wz, z, -wx], dim=-1),
+            torch.stack([-wy, wx, z], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat. W: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
+def _eye3(ref: torch.Tensor, shape) -> torch.Tensor:
+    return torch.eye(3, dtype=ref.dtype, device=ref.device).expand(shape)
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues exponential map (Taylor-safe near 0). (..., 3) -> (..., 3, 3)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + 1e-32)
+    W = hat(w)
+    W2 = W @ W
+    small = theta2 < 1e-12
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    return _eye3(w, W.shape) + a[..., None, None] * W + b[..., None, None] * W2
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Logarithm map. R: (..., 3, 3) -> w (..., 3)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0)
+    w_raw = vee(R - R.transpose(-1, -2)) / 2.0  # = sin(theta) * axis
+    sin_theta = torch.sqrt(torch.sum(w_raw * w_raw, dim=-1) + 1e-32)
+    theta = torch.atan2(sin_theta, cos_theta)
+    small = theta < 1e-6
+    scale = torch.where(
+        small, 1.0 + theta * theta / 6.0,
+        theta / torch.where(small, torch.ones_like(sin_theta), sin_theta + 1e-32),
+    )
+    w = w_raw * scale[..., None]
+    # theta ~ pi branch: axis from the diagonal of (R + I)/2.
+    near_pi = theta > (math.pi - 1e-3)
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    axis = torch.sqrt(torch.clamp((diag + 1.0) / 2.0, 0.0, 1.0))
+    one = torch.ones_like(theta)
+    sx = torch.where(R[..., 2, 1] - R[..., 1, 2] >= 0, one, -one)
+    sy = torch.where(R[..., 0, 2] - R[..., 2, 0] >= 0, one, -one)
+    sz = torch.where(R[..., 1, 0] - R[..., 0, 1] >= 0, one, -one)
+    axis = axis * torch.stack([sx, sy, sz], dim=-1)
+    axis = axis / (torch.linalg.norm(axis, dim=-1, keepdim=True) + 1e-32)
+    w_pi = axis * theta[..., None]
+    return torch.where(near_pi[..., None], w_pi, w)
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) exp. xi = (v, w): (..., 6) translation-first -> T (..., 4, 4)."""
+    v, w = xi[..., :3], xi[..., 3:]
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + 1e-32)
+    W = hat(w)
+    W2 = W @ W
+    small = theta2 < 1e-12
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (1.0 - a) / theta2)
+    eye = _eye3(xi, W.shape)
+    R = eye + a[..., None, None] * W + b[..., None, None] * W2
+    V = eye + b[..., None, None] * W + c[..., None, None] * W2
+    t = (V @ v[..., None])[..., 0]
+    return rt_to_mat(R, t)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) log. T: (..., 4, 4) -> xi (..., 6), translation-first."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    w = so3_log(R)
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + 1e-32)
+    W = hat(w)
+    W2 = W @ W
+    small = theta2 < 1e-12
+    half = theta / 2.0
+    cot_term = torch.where(
+        small,
+        1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half) / (torch.sin(half) + 1e-32)) / (theta2 + 1e-32),
+    )
+    V_inv = _eye3(T, W.shape) - 0.5 * W + cot_term[..., None, None] * W2
+    v = (V_inv @ t[..., None])[..., 0]
+    return torch.cat([v, w], dim=-1)
+
+
+def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R (...,3,3), t (...,3)) -> T (...,4,4)."""
+    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def mat_to_rt(T: torch.Tensor):
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    R, t = mat_to_rt(T)
+    Rt = R.transpose(-1, -2)
+    return rt_to_mat(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply T (...,4,4) to pts (..., N, 3) -> (..., N, 3)."""
+    R, t = mat_to_rt(T)
+    return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (x, y, z, w), branch-free Shepperd."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def sq(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12)) * 2.0
+
+    sw = sq(tr + 1.0)
+    qw = torch.stack([(m21 - m12) / sw, (m02 - m20) / sw, (m10 - m01) / sw, sw / 4.0], -1)
+    sx = sq(1.0 + m00 - m11 - m22)
+    qx = torch.stack([sx / 4.0, (m01 + m10) / sx, (m02 + m20) / sx, (m21 - m12) / sx], -1)
+    sy = sq(1.0 - m00 + m11 - m22)
+    qy = torch.stack([(m01 + m10) / sy, sy / 4.0, (m12 + m21) / sy, (m02 - m20) / sy], -1)
+    sz = sq(1.0 - m00 - m11 + m22)
+    qz = torch.stack([(m02 + m20) / sz, (m12 + m21) / sz, sz / 4.0, (m10 - m01) / sz], -1)
+    use_w = tr > 0
+    use_x = (~use_w) & (m00 >= m11) & (m00 >= m22)
+    use_y = (~use_w) & (~use_x) & (m11 >= m22)
+    q = torch.where(
+        use_w[..., None], qw,
+        torch.where(use_x[..., None], qx, torch.where(use_y[..., None], qy, qz)),
+    )
+    return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-32)

@@ -1,0 +1,58 @@
+"""Tensor idioms the JAX package gets from XLA, with the same semantics.
+
+- `top_k`: `lax.top_k` order — descending, ties resolved to the LOWER
+  index first. `torch.topk` promises no order among ties, and several
+  selections (candidate gathers, keypoint selection, window assembly)
+  feed that order into later tie-breaks, so a stable sort is used.
+- `scatter`: `.at[idx].set/add/min/max(..., mode="drop")` — indices
+  outside the array are dropped (torch raises on them), and the input is
+  never modified (JAX arrays are immutable; callers keep pre-update
+  snapshots of the map state). Duplicate `set` indices resolve
+  arbitrarily on the card, as they do under XLA; the CPU writes in order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last dim, lowest
+    index first among equal values."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def scatter(t: torch.Tensor, idx, val, op: str = "set") -> torch.Tensor:
+    """Functional scatter into the leading `len(idx)` dims of `t`.
+
+    idx: one index tensor or a tuple of them (broadcast together);
+    val: broadcastable to idx.shape + t.shape[len(idx):];
+    op: "set", "add", "amin" or "amax" (the last two for 1-D scalar
+    entries). Out-of-range indices are dropped."""
+    if not isinstance(idx, tuple):
+        idx = (idx,)
+    idx = torch.broadcast_tensors(*idx)
+    n_lead = len(idx)
+    lead = t.shape[:n_lead]
+    trail = t.shape[n_lead:]
+    ok = torch.ones(idx[0].shape, dtype=torch.bool, device=t.device)
+    lin = torch.zeros(idx[0].shape, dtype=torch.int64, device=t.device)
+    for d, i in zip(lead, idx):
+        ok &= (i >= 0) & (i < d)
+        lin = lin * d + i.to(torch.int64)
+    val = torch.as_tensor(val, dtype=t.dtype, device=t.device)
+    val = val.expand(idx[0].shape + trail)
+    lin = lin[ok]
+    v = val[ok]
+    out = t.clone()
+    flat = out.view(-1, *trail)
+    if op == "set":
+        flat[lin] = v
+    elif op == "add":
+        flat.index_put_((lin,), v, accumulate=True)
+    elif op in ("amin", "amax"):
+        flat.scatter_reduce_(0, lin, v, reduce=op, include_self=True)
+    else:
+        raise ValueError(op)
+    return out

@@ -1,0 +1,121 @@
+"""Package rules of the PyTorch port: it loads neither JAX, Triton nor the
+JAX package; its entry points run on the card unless asked for the CPU;
+unported subsystems are refused rather than skipped."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from orb_slam2_ssd_semantic_tpu_torch.config import DynamicConfig, LoopConfig, SlamConfig
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "orb_slam2_ssd_semantic_tpu_torch"
+NO_LOOP = LoopConfig(enabled=False, enable_relocalization=False)
+
+
+def test_import_leaves_jax_triton_and_reference_unloaded():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "import orb_slam2_ssd_semantic_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'triton', 'orb_slam2_ssd_semantic_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_sources_never_import_jax_or_the_reference():
+    bad = []
+    for path in PKG.rglob("*.py"):
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if (re.search(r"^\s*(import|from)\s+jax\b", line)
+                    or re.search(r"orb_slam2_ssd_semantic_tpu\.", line)
+                    or re.match(r"(import|from)\s+triton\b", line)):
+                bad.append(f"{path.relative_to(ROOT)}:{i}: {line.strip()}")
+    assert not bad, bad
+
+
+def test_tracker_defaults_to_the_card():
+    from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Tracker(SlamConfig(loop=NO_LOOP))
+
+
+@pytest.mark.parametrize("cfg", [
+    SlamConfig(),
+    SlamConfig(loop=LoopConfig(enabled=False, enable_relocalization=True)),
+    SlamConfig(loop=NO_LOOP, dynamic=DynamicConfig(enable_flow=True)),
+    SlamConfig(loop=NO_LOOP, dynamic=DynamicConfig(enable_geometry=True)),
+], ids=["loop", "reloc", "flow", "geometry"])
+def test_tracker_refuses_unported_subsystems(cfg):
+    from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
+
+    with pytest.raises(NotImplementedError):
+        Tracker(cfg, device="cpu")
+
+
+def test_precision_scope_disables_and_restores_tf32():
+    from orb_slam2_ssd_semantic_tpu_torch.utils import precision
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with precision.highest_precision():
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
+    """CPU tensors go to the plain version and leave the launch counters
+    alone; another device type is refused."""
+    from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_match, cuda_solve
+
+    n0, m0 = cuda_solve.spd_solve.launches, cuda_match.window_match.launches
+    x = cuda_solve.spd_solve(torch.eye(6) * 2.0, torch.ones(6))
+    torch.testing.assert_close(x, torch.full((6,), 0.5))
+    q = torch.zeros((256, 8), dtype=torch.int32)
+    t = torch.zeros((128, 8), dtype=torch.int32)
+    best, *_ = cuda_match.window_match(q, t, torch.zeros((256, 2)), torch.zeros((128, 2)), 1.0,
+                                       torch.ones(256, dtype=torch.bool),
+                                       torch.ones(128, dtype=torch.bool))
+    assert (best == 0).all()
+    assert (cuda_solve.spd_solve.launches, cuda_match.window_match.launches) == (n0, m0)
+    with pytest.raises(ValueError):
+        cuda_solve.spd_solve(torch.eye(6, device="meta"), torch.ones(6, device="meta"))
+
+
+def test_launch_signatures_match_the_cuda_sources():
+    """The ctypes argument types set at load agree with each kernel's C
+    launch function in its source: a mismatch would pass pointers as ints
+    (or the reverse) only on the card."""
+    import ctypes
+    import re
+
+    from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build
+
+    for name, argtypes in cuda_build.SIGNATURES.items():
+        src = (cuda_build.CSRC / f"{name}.cu").read_text()
+        m = re.search(rf"^int {name}\(([^)]*)\)", src, re.MULTILINE)
+        assert m, f"no `int {name}(...)` in {name}.cu"
+        params = [p.strip() for p in m.group(1).split(",")]
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+        assert all(p.startswith(("int ", "const void*", "void*")) for p in params), params
+        assert argtypes == want, (name, params)
