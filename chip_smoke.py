@@ -8,11 +8,17 @@ Run from the repository root, with no arguments:
 Phases (any failure exits non-zero; nothing is caught):
   1. print the card (nvidia-smi) and torch; build the CUDA kernels from
      `orb_slam2_ssd_semantic_tpu_torch/csrc/` with nvcc (one process per
-     source, all at once) into `build/torch_kernels/`;
+     source, all at once) into `build/torch_kernels/`; time an empty
+     kernel's launch (`launch_floor.cu`, beside this script), the floor
+     under every kernel time below;
   2. the window matcher (B1) against its plain PyTorch version at the main
-     path's shapes: all four outputs exactly equal;
+     path's shapes and at shapes that leave ragged tiles, on a tie-heavy
+     problem, with all targets or some queries masked, and with a scalar
+     radius: all four outputs exactly equal, and equal again on a second
+     run;
   3. the SPD solve (B2) against its plain version and an f64 solve, with
-     the Pallas kernel tests' tolerances;
+     the Pallas kernel tests' tolerances, at six sizes, through a strided
+     and a transposed view, and on a near-singular damped system;
   4. the main path: `Tracker.process` on a rendered synthetic RGB-D
      sequence at 640x480 with the default config (loop closing and
      relocalization off), long enough for local mapping to run; checks
@@ -25,10 +31,18 @@ Phases (any failure exits non-zero; nothing is caught):
      and the result line last.
 
 Without a CUDA card it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --host-times
+
+builds the kernels and prints only what the two wrappers cost the host at
+the main path's shapes (see `host_times`). It uses nothing of the package
+but the wrappers' `prepare` and `launch`, so a copy of this script placed
+in another commit's tree reads that tree's wrappers the same way.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import multiprocessing
@@ -37,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -65,9 +80,20 @@ N_FRAMES = 96
 # Steady frames (no keyframe) traced with torch.profiler for the device
 # breakdown; they are left out of the per-frame timing statistics.
 PROFILE_FRAMES = range(40, 45)
-B1_SHAPES = ((2048, 1024), (1024, 1024), (512, 128))
-B2_SIZES = (6, 96, 120, 128)
+# B1: the main path's three shapes first; then a T of six splits (384), Q and
+# T that fill no tile (300, 200: a last split of 8 targets), a T under one
+# split (40), a T whose splits are two staged chunks long (4096), a wide one.
+B1_SHAPES = ((2048, 1024), (1024, 1024), (512, 128), (768, 384), (256, 128), (300, 200),
+             (256, 40), (512, 4096), (2048, 2048))
+B2_SIZES = (6, 59, 96, 108, 120, 128)
 B2_MAIN_N = 120
+# Times of the kernels these replaced (one thread per query on 8 blocks; a
+# Gauss-Jordan elimination on 1024 threads), read by this script on an
+# NVIDIA H100 80GB HBM3 at 700.00 W before the redesign (PERF.md, section 6).
+# Shown in the log beside this run's times; not part of the `kernels` line,
+# which holds only what this run measured.
+B1_PREV_MS = {(2048, 1024): 0.1563, (1024, 1024): 0.1533}
+B2_PREV_MS = {120: 0.2857}
 SPD_RTOL, SPD_ATOL, SPD_RESID, SPD_RESID_ILL = 2e-2, 2e-3, 1e-3, 5e-2
 # Phase 5: the same local-mapping step with B2 and with its plain version.
 # Both are f32 eliminations of the same damped system (per-solve
@@ -102,6 +128,37 @@ def _time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
+def _graph_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Time on the device of everything one call of `fn` puts there: `reps`
+    calls are captured into one CUDA graph and the graph replayed, so the
+    host's launch rate, which sets `_time_ms` for kernels this short, is
+    out of the reading. Median over `rounds` replays, per call."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return _time_ms(graph.replay, reps=1, rounds=rounds) / reps
+
+
+def _host_ms(fn, reps: int = 50, rounds: int = 7) -> float:
+    """What one call of `fn` costs the host: `perf_counter` around `reps`
+    calls that nothing waits on, median over `rounds` of the mean. The
+    device is drained before each round, so that the stream's queue never
+    fills and makes the host wait."""
+    for _ in range(3):
+        fn()
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out.append((time.perf_counter() - t0) * 1e3 / reps)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
 def _bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
@@ -128,8 +185,11 @@ def card_line() -> str:
 
 
 def build_kernels() -> float:
+    """The port's kernels and this script's empty one, one nvcc each."""
+    cuda_build.register("launch_floor", Path(__file__).resolve().parent / "launch_floor.cu",
+                        [ctypes.c_void_p])
     t0 = time.perf_counter()
-    logs = cuda_build.build_all(force=True)
+    logs = cuda_build.build_all(force=True, extra=("launch_floor",))
     secs = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
@@ -137,6 +197,16 @@ def build_kernels() -> float:
                 _log(f"  ptxas[{name}]: {line.strip()}")
     _log(f"build: {len(logs)} kernels in {secs:.2f} s")
     return secs
+
+
+def launch_floor_ms() -> float:
+    """Back-to-back launches of an empty kernel through the same ctypes
+    route as the port's kernels: no kernel's time can lie below this."""
+    stream = torch.cuda.current_stream().cuda_stream
+    prepared = cuda_build.Prepared("launch_floor", (stream,), ())
+    ms = _time_ms(lambda: cuda_build.launch(prepared))
+    _log(f"launch floor: an empty kernel takes {ms:.5f} ms a launch")
+    return ms
 
 
 # ---- phase 2: B1 -------------------------------------------------------------
@@ -160,29 +230,62 @@ def _b1_problem(seed: int, q: int, t: int, dev):
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in arrays.items()}
 
 
+def _b1_tie_problem(seed: int, q: int, t: int, dev):
+    """A few descriptors and spots repeated over all targets: every query
+    finds many targets at the same distance inside its window, in every
+    split, so equal values meet in the walk and in the merge."""
+    rng = np.random.default_rng(seed)
+    proto = rng.integers(0, 2**32, (8, 8), dtype=np.uint32)
+    spots = rng.uniform(100, 500, (8, 2)).astype(np.float32)
+    kind_t, kind_q = rng.integers(0, 8, t), rng.integers(0, 8, q)
+    desc_q = proto[kind_q].copy()
+    desc_q[::2, 0] ^= np.uint32(1)
+    arrays = dict(
+        desc_q=desc_q.view(np.int32), desc_t=proto[kind_t].view(np.int32),
+        centers=spots[kind_q], uv_t=(spots[kind_t] + rng.uniform(-2, 2, (t, 2))).astype(np.float32),
+        radius=np.full((q,), 4.0, np.float32),
+        valid_q=rng.random(q) > 0.1, valid_t=rng.random(t) > 0.3,
+    )
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in arrays.items()}
+
+
+def _b1_compare(p: dict, max_dist: int, label: str):
+    """Kernel against plain version: all four outputs equal (tolerance 0).
+    Returns the kernel's outputs and the largest difference found."""
+    got = cuda_match.window_match(**p, max_dist=max_dist)
+    ref = cuda_match.window_match_reference(**p, max_dist=max_dist)
+    torch.cuda.synchronize()
+    err = 0
+    for name, a, b in zip(("best", "second", "idx", "key_min"), got, ref):
+        err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+        if not torch.equal(a, b.to(torch.int32)):
+            raise AssertionError(f"B1 {name} differs, {label}: {int((a != b).sum())} entries")
+    return got, err
+
+
 def check_b1(dev) -> dict:
     rows = []
     for i, (q, t) in enumerate(B1_SHAPES):
         max_dist = 100 if q >= 1024 else 50
         p = _b1_problem(100 + i, q, t, dev)
-        got = cuda_match.window_match(**p, max_dist=max_dist)
-        ref = cuda_match.window_match_reference(**p, max_dist=max_dist)
-        torch.cuda.synchronize()
-        err = 0
-        for name, a, b in zip(("best", "second", "idx", "key_min"), got, ref):
-            b = b.to(torch.int32)
-            if not torch.equal(a, b):
-                raise AssertionError(f"B1 {name} differs at Q={q} T={t}: "
-                                     f"{int((a != b).sum())} entries")
-            err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+        got, err = _b1_compare(p, max_dist, f"Q={q} T={t}")
         n_claimed = int((got[3] < cuda_match.BIG_KEY).sum())
         if n_claimed == 0:
             raise AssertionError(f"B1 check at Q={q} T={t} claimed no target")
-        # The kernel alone: the launch on buffers the wrapper's checks and
+        if i == 0:  # a second run gives the same bits: the claims' atomics are order-free
+            again = cuda_match.window_match(**p, max_dist=max_dist)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("B1 gave two different results on the same input")
+        split_len, n_splits = cuda_match.tiles(q, t)
+        grid = [-(-q // cuda_match.Q_TILE), n_splits]
+        # The kernels alone: the launch on buffers the wrapper's checks and
         # allocations prepared once.
         prepared, _ = cuda_match.prepare(**p, max_dist=max_dist)
         ms = _time_ms(lambda: cuda_match.launch(prepared))
         wrapper_ms = _time_ms(lambda: cuda_match.window_match(**p, max_dist=max_dist))
+        device_ms = _graph_ms(lambda: cuda_match.window_match(**p, max_dist=max_dist))
+        host_prepare_ms = _host_ms(lambda: cuda_match.prepare(**p, max_dist=max_dist))
+        host_launch_ms = _host_ms(lambda: cuda_match.launch(prepared))
         plain_ms = _time_ms(lambda: cuda_match.window_match_reference(**p, max_dist=max_dist),
                             reps=5)
         # Work this data needs: every pair takes the window and validity
@@ -194,12 +297,46 @@ def check_b1(dev) -> dict:
         n_bytes = q * (32 + 8 + 4 + 1) + t * (32 + 8 + 1) + q * 12 + t * 4
         bound, by = _bound_ms(n_bytes, n_ops)
         row = dict(q=q, t=t, max_abs_err=err, claimed=n_claimed, in_window_pairs=in_win,
-                   ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+                   ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   device_ms=device_ms, host_prepare_ms=host_prepare_ms,
+                   host_launch_ms=host_launch_ms, grid=grid, split_len=split_len)
         _log(f"B1 window_match Q={q} T={t}: exact (tolerance 0), {n_claimed} targets claimed; "
-             f"kernel {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-             f"bound {bound:.6f} ms ({by})")
+             f"grid {grid[0]} x {grid[1]} = {grid[0] * grid[1]} blocks of {cuda_match.Q_TILE} "
+             f"queries x {split_len} targets; launch to end {ms:.4f} ms (before the redesign: "
+             f"{B1_PREV_MS.get((q, t))}), the wrapper's work on the device {device_ms:.4f} ms, "
+             f"wrapper {wrapper_ms:.4f} ms, of the host's time {host_prepare_ms:.4f} ms in "
+             f"prepare and {host_launch_ms:.4f} ms in launch, plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
         rows.append(row)
-    return rows[0] | {"max_abs_err": max(r["max_abs_err"] for r in rows)}
+    if rows[0]["grid"][0] * rows[0]["grid"][1] < 64:
+        raise AssertionError(f"B1 grid at {B1_SHAPES[0]} has under 64 blocks: {rows[0]['grid']}")
+
+    q, t = B1_SHAPES[0]
+    p = _b1_tie_problem(7, q, t, dev)
+    (best, second, _, key_min), err_ties = _b1_compare(p, 100, "tie-heavy case")
+    n_tied = int(((best == second) & (best < cuda_match.BIG)).sum())
+    if n_tied < q // 2 or int((key_min < cuda_match.BIG_KEY).sum()) == 0:
+        raise AssertionError(f"B1 tie-heavy case is vacuous: {n_tied} tied queries")
+    p = _b1_problem(200, q, t, dev)
+    none_t = p | {"valid_t": torch.zeros_like(p["valid_t"])}
+    (best, second, idx, key_min), err_none = _b1_compare(none_t, 100, "all targets masked")
+    if not (bool((best == cuda_match.BIG).all()) and bool((second == cuda_match.BIG).all())
+            and bool((idx == 0).all()) and bool((key_min == cuda_match.BIG_KEY).all())):
+        raise AssertionError("B1 with all targets masked: expected best = second = BIG, idx = 0")
+    some_q = p["valid_q"].clone()
+    some_q[::5] = False
+    (best, *_), err_some = _b1_compare(p | {"valid_q": some_q}, 100, "every fifth query masked")
+    if not bool((best[::5] == cuda_match.BIG).all()):
+        raise AssertionError("B1 matched a masked query")
+    err_radius = max(
+        _b1_compare(p | {"radius": 25.0}, 100, "scalar radius (a Python float)")[1],
+        _b1_compare(p | {"radius": torch.tensor(25.0, device=dev)}, 100, "scalar radius (0-d)")[1],
+        _b1_compare(p | {"radius": p["radius"].repeat_interleave(2)[::2]}, 100,
+                    "strided radius")[1])
+    _log(f"B1 window_match cases at Q={q} T={t}: tie-heavy ({n_tied} queries with best == "
+         f"second), all targets masked, every fifth query masked, scalar and strided radius: "
+         f"all exact; a second run of the first problem gave the same bits")
+    return rows[0] | {"max_abs_err": max(err_ties, err_none, err_some, err_radius,
+                                         *(r["max_abs_err"] for r in rows))}
 
 
 # ---- phase 3: B2 -------------------------------------------------------------
@@ -231,20 +368,42 @@ def check_b2(dev) -> dict:
         prepared, _ = cuda_solve.prepare(a, b)
         ms = _time_ms(lambda: cuda_solve.launch(prepared))
         wrapper_ms = _time_ms(lambda: cuda_solve.spd_solve(a, b))
+        device_ms = _graph_ms(lambda: cuda_solve.spd_solve(a, b))
+        host_prepare_ms = _host_ms(lambda: cuda_solve.prepare(a, b))
+        host_launch_ms = _host_ms(lambda: cuda_solve.launch(prepared))
         plain_ms = _time_ms(lambda: cuda_solve.spd_solve_reference(a, b))
         library_ms = _time_ms(lambda: torch.linalg.solve(a, b))
-        # What an SPD system of n unknowns needs, whatever the kernel does
-        # (Gauss-Jordan spends 2 n^3): a Cholesky factorisation, n^3 / 3
-        # flops, and two triangular solves, 2 n^2; A and b read once, x
+        # What an SPD system of n unknowns needs, whatever the kernel does:
+        # a Cholesky factorisation, n^3 / 3 flops, and two triangular
+        # solves, 2 n^2; one triangle of the symmetric A and b read once, x
         # written once.
-        bound, by = _bound_ms(4.0 * (n * n + 2 * n), n**3 / 3.0 + 2.0 * n * n)
+        bound, by = _bound_ms(4.0 * (n * (n + 1) // 2 + 2 * n), n**3 / 3.0 + 2.0 * n * n)
         _log(f"B2 spd_solve n={n}: residual {resid:.2e}, max |kernel - plain| {err:.3e} "
-             f"(rtol {SPD_RTOL}, atol {SPD_ATOL}); kernel {ms:.4f} ms, wrapper "
-             f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg.solve "
-             f"{library_ms:.4f} ms, bound {bound:.6f} ms ({by})")
+             f"(rtol {SPD_RTOL}, atol {SPD_ATOL}); launch to end {ms:.4f} ms (before the "
+             f"redesign: {B2_PREV_MS.get(n)}), the wrapper's work on the device "
+             f"{device_ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, of the host's time "
+             f"{host_prepare_ms:.4f} ms in prepare and {host_launch_ms:.4f} ms in launch, "
+             f"plain {plain_ms:.4f} ms, "
+             f"torch.linalg.solve {library_ms:.4f} ms, bound {bound:.6f} ms ({by})")
         if n == B2_MAIN_N:
-            main = dict(n=n, max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                        library_ms=library_ms, bound_ms=bound, bound_by=by)
+            main = dict(n=n, max_abs_err=err, ms=ms, device_ms=device_ms, wrapper_ms=wrapper_ms,
+                        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=by,
+                        host_prepare_ms=host_prepare_ms, host_launch_ms=host_launch_ms)
+            # A read through its row stride (a block of a larger matrix):
+            # the same bits as from the contiguous matrix. Through a
+            # transposed view, which the wrapper copies, the kernel reads
+            # A's upper triangle, equal to the lower only up to rounding.
+            big = torch.zeros((n + 5, n + 9), dtype=torch.float32, device=dev)
+            big[2:n + 2, 3:n + 3] = a
+            block = big[2:n + 2, 3:n + 3]
+            if block.is_contiguous() or a.t().is_contiguous():
+                raise AssertionError("the views under test are contiguous")
+            if not torch.equal(cuda_solve.spd_solve(block, b), x):
+                raise AssertionError("B2 through a strided block differs")
+            torch.testing.assert_close(cuda_solve.spd_solve(a.t(), b), x, rtol=SPD_RTOL,
+                                       atol=SPD_ATOL)
+            _log(f"B2 spd_solve n={n}: a strided block gives the same bits, a transposed view "
+                 f"agrees (rtol {SPD_RTOL}, atol {SPD_ATOL})")
     # The near-singular damped case of the Pallas kernel's tests.
     n = 108
     u = np.linalg.qr(rng.normal(0, 1, (n, n)))[0].astype(np.float32)
@@ -415,6 +574,32 @@ def run_b2_path(tracker, dev) -> dict:
     return res
 
 
+def host_times(dev) -> dict:
+    """Host time of each wrapper's `prepare` and `launch`, and of the whole
+    wrapper, for B1 at the main path's first shape and B2 at its size."""
+    q, t = B1_SHAPES[0]
+    p = _b1_problem(100, q, t, dev)
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(_spd(rng, B2_MAIN_N)).to(dev)
+    b = torch.from_numpy(rng.normal(0, 1, (B2_MAIN_N,)).astype(np.float32)).to(dev)
+    prep1, _ = cuda_match.prepare(**p, max_dist=100)
+    prep2, _ = cuda_solve.prepare(a, b)
+    res = {
+        "window_match": dict(
+            shape=[q, t],
+            host_prepare_ms=_host_ms(lambda: cuda_match.prepare(**p, max_dist=100)),
+            host_launch_ms=_host_ms(lambda: cuda_match.launch(prep1)),
+            host_wrapper_ms=_host_ms(lambda: cuda_match.window_match(**p, max_dist=100))),
+        "spd_solve": dict(
+            shape=[B2_MAIN_N],
+            host_prepare_ms=_host_ms(lambda: cuda_solve.prepare(a, b)),
+            host_launch_ms=_host_ms(lambda: cuda_solve.launch(prep2)),
+            host_wrapper_ms=_host_ms(lambda: cuda_solve.spd_solve(a, b))),
+    }
+    _log("host times: " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
@@ -422,7 +607,15 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     _log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if sys.argv[1:] == ["--host-times"]:
+        cuda_build.build_all(force=True)
+        host_times(dev)
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     build_s = build_kernels()
+    floor_ms = launch_floor_ms()
     b1 = check_b1(dev)
     b2 = check_b2(dev)
     main_res = run_main_path(dev)
@@ -434,14 +627,20 @@ def main() -> int:
              launches=main_res["launches"]["window_match"], max_abs_err=b1["max_abs_err"],
              ms=b1["ms"], plain_ms=b1["plain_ms"], bound_ms=b1["bound_ms"],
              bound_by=b1["bound_by"], library_ms=None, shape=[b1["q"], b1["t"]],
-             wrapper_ms=b1["wrapper_ms"], path="Tracker.process, default config"),
+             wrapper_ms=b1["wrapper_ms"], device_ms=b1["device_ms"],
+             host_prepare_ms=b1["host_prepare_ms"], host_launch_ms=b1["host_launch_ms"],
+             grid=b1["grid"], launch_floor_ms=floor_ms,
+             path="Tracker.process, default config"),
         dict(name="spd_solve", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/spd_solve.cu",
              replaces="orb_slam2_ssd_semantic_tpu/ops/pallas_solve.py:79",
              launches=b2_path["launches"]["spd_solve"], max_abs_err=b2["max_abs_err"],
              ms=b2["ms"], plain_ms=b2["plain_ms"], bound_ms=b2["bound_ms"],
              bound_by=b2["bound_by"], library_ms=b2["library_ms"], shape=[b2["n"]],
-             wrapper_ms=b2["wrapper_ms"], path="local_mapping_step, window 12 + 8"),
+             wrapper_ms=b2["wrapper_ms"], device_ms=b2["device_ms"],
+             host_prepare_ms=b2["host_prepare_ms"], host_launch_ms=b2["host_launch_ms"],
+             launch_floor_ms=floor_ms,
+             path="local_mapping_step, window 12 + 8"),
     ]
     _log(f"summary: build {build_s:.2f} s, main path median {main_res['median_frame_ms']:.2f} "
          f"ms/frame over {main_res['timed_frames']} frames")

@@ -5,6 +5,8 @@ Each `csrc/<name>.cu` compiles on first use into
 `build/torch_kernels/lib<name>.so` at the repository root, for Hopper
 (`sm_90a`). Nothing here runs at import time, so the CPU-only tests can
 import every module. `build_all()` starts one nvcc per source at once.
+`register()` takes a kernel from outside the package (a measurement's)
+through the same build and launch; `KERNELS` lists only the port's own.
 """
 
 from __future__ import annotations
@@ -22,17 +24,25 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # Each kernel's C launch function, `int <name>(...)`, by its argument types;
 # it returns cudaGetLastError() after the launch.
 SIGNATURES = {
-    # desc_q, desc_t, centers, uv_t, radius, valid_q, valid_t, Q, T, max_dist,
-    # best, second, idx, key_min, stream
-    "window_match": [_P] * 7 + [_I] * 3 + [_P] * 5,
-    # a_pad, b_pad, n, x, stream
-    "spd_solve": [_P, _P, _I, _P, _P],
+    # desc_q, desc_t, centers, uv_t, radius, radius_stride, valid_q, valid_t,
+    # Q, T, max_dist, split_len, part, best, second, idx, key_min, stream
+    "window_match": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 6,
+    # a, lda, b, n, x, stream
+    "spd_solve": [_P, _I, _P, _I, _P, _P],
 }
 KERNELS = tuple(SIGNATURES)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: dict = {}
+_registered: dict = {}  # name -> source path, kernels from outside the package
+
+
+def register(name: str, source, argtypes) -> None:
+    """Make `source`, a .cu outside `csrc/` with a C launch function
+    `int <name>(...)` of `argtypes`, buildable and launchable by `name`."""
+    _registered[name] = Path(source)
+    SIGNATURES[name] = list(argtypes)
 
 
 def _nvcc() -> str:
@@ -46,7 +56,7 @@ def _nvcc() -> str:
 
 
 def _paths(name: str):
-    return CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
+    return _registered.get(name, CSRC / f"{name}.cu"), BUILD_DIR / f"lib{name}.so"
 
 
 def _stale(name: str) -> bool:
@@ -72,9 +82,10 @@ def _finish(name: str, proc: subprocess.Popen) -> str:
     return out
 
 
-def build_all(force: bool = False) -> dict:
-    """Compile every kernel source in parallel; returns {name: nvcc log}."""
-    procs = {n: _start(n) for n in KERNELS if force or _stale(n)}
+def build_all(force: bool = False, extra: tuple = ()) -> dict:
+    """Compile every kernel source of the port, and the registered kernels
+    named in `extra`, in parallel; returns {name: nvcc log}."""
+    procs = {n: _start(n) for n in (*KERNELS, *extra) if force or _stale(n)}
     return {n: _finish(n, p) for n, p in procs.items()}
 
 

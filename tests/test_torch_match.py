@@ -59,6 +59,80 @@ def test_window_match_all_masked_matches_pallas_kernel():
     assert (tt[0].numpy() == tm.BIG).all() and (tt[2].numpy() == 0).all()
 
 
+def _split_case(case):
+    """Problems for the split-and-merge model of the card's two kernels."""
+    if case == "random":
+        return _problem(21, 256, 256)
+    if case == "t384":
+        return _problem(22, 256, 384)
+    if case == "all_masked":
+        p = _problem(23, 256, 256)
+        p["valid_t"] = np.zeros_like(p["valid_t"])
+        return p
+    if case == "masked_rows":
+        p = _problem(24, 256, 256)
+        p["valid_q"][::3] = False
+        return p
+    assert case == "ties"
+    # A handful of descriptors and positions repeated over all targets, so
+    # that equal distances inside one window meet in every split and in
+    # the merge; queries are exact copies (distance 0 ties) or one bit off.
+    rng = np.random.default_rng(25)
+    q, t = 256, 256
+    proto = rng.integers(0, 2**32, (4, 8), dtype=np.uint32)
+    spots = rng.uniform(100, 500, (4, 2)).astype(np.float32)
+    kind_t = rng.integers(0, 4, t)
+    kind_q = rng.integers(0, 4, q)
+    desc_q = proto[kind_q].copy()
+    desc_q[::2, 0] ^= np.uint32(1)
+    return dict(desc_q=desc_q, desc_t=proto[kind_t],
+                centers=spots[kind_q], uv_t=spots[kind_t],
+                radius=np.full((q,), 4.0, np.float32),
+                valid_q=rng.random(q) > 0.1, valid_t=rng.random(t) > 0.3)
+
+
+@pytest.mark.parametrize("split", [32, 128, None])
+@pytest.mark.parametrize("case", ["random", "ties", "all_masked", "masked_rows", "t384"])
+def test_window_match_split_reference_equals_reference(case, split):
+    """Partial top-2 per target split, merged in ascending order, gives
+    exactly what the one-pass plain version gives, ties included.
+    `split=None` is one split over all of T."""
+    p = _split_case(case)
+    tp = _torch(p)
+    t = p["desc_t"].shape[0]
+    ref = cuda_match.window_match_reference(**tp, max_dist=100)
+    got = cuda_match.window_match_split_reference(**tp, max_dist=100, split=split or t)
+    for name, a, b in zip(("best", "second", "idx", "key_min"), got, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+    if case == "ties":  # ties must really meet across splits
+        assert (ref[0] == ref[1]).sum() > 50
+        assert (ref[3] < cuda_match.BIG_KEY).sum() > 0
+    if case == "all_masked":
+        assert (ref[0] == tm.BIG).all() and (ref[2] == 0).all()
+
+
+def test_window_match_split_reference_equals_pallas_kernel():
+    p = _split_case("ties")
+    j = fused_window_match(**_jax(p), max_dist=100, interpret=True)
+    tt = cuda_match.window_match_split_reference(**_torch(p), max_dist=100, split=32)
+    for name, a, b in zip(("best", "second", "idx", "key_min"), j, tt):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("q,t", [(2048, 1024), (1024, 1024), (512, 128), (768, 384), (256, 100),
+                                 (2048, 2048), (2048, 32768)])
+def test_window_match_tiles_cover_the_problem(q, t):
+    """The grid the card's launch gets: splits that cover T, at least 64
+    blocks at the tracker's shapes, and scratch that does not grow with
+    T beyond MAX_SPLITS partial results a query."""
+    split_len, n_splits = cuda_match.tiles(q, t)
+    assert split_len % cuda_match.SPLIT_UNIT == 0
+    assert (n_splits - 1) * split_len < t <= n_splits * split_len
+    assert n_splits <= cuda_match.MAX_SPLITS
+    if q >= 1024 and t >= 1024:
+        assert -(-q // cuda_match.Q_TILE) * n_splits >= 64
+
+
 def test_hamming_matrix_popcount_exact():
     p = _problem(3, 64, 128)
     a = np.asarray(jm.hamming_matrix(jnp.asarray(p["desc_q"]), jnp.asarray(p["desc_t"])))
