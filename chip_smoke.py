@@ -27,7 +27,24 @@ Phases (any failure exits non-zero; nothing is caught):
      size at which local BA routes its reduced camera system to B2) on the
      phase-4 map; checks that B2 launched and that the refined poses agree
      with the same step forced through B2's plain version;
-  6. one JSON line of per-kernel numbers, the card's name and power limit,
+  6. relocalization: `Tracker.process` with
+     `LoopConfig(enabled=False, enable_relocalization=True)` on phase 4's
+     frames, with a NAMED vocabulary (a DBoW2 tree of the trained file's
+     shape built from a fixed seed into `build/`; a missing-vocabulary
+     warning is an error here, so the phase never measures the codebook
+     under the vocabulary's name). Checks: `relocalize` called directly on
+     fresh frames near keyframe 0's view succeeds with >= 50 inliers and
+     within 5 cm of the tracked pose, on the vocabulary and on the flat
+     codebook, and on the vocabulary with the frames' depth zeroed (the
+     monocular EPnP branch); in localization-only mode with the map's
+     points dropped for 4 frames the status is never LOST and
+     relocalization is tried, and with the points back it is OK; a
+     kidnapped camera (the first poses rolled by 180 degrees) goes LOST,
+     relocalizes within 5 cm of ground truth and tracks OK on, with B1
+     launched over those frames. Logs the median host time of a
+     relocalization stage call and of a direct `relocalize` call, and the
+     launches and syncs of one call by profiler range;
+  7. one JSON line of per-kernel numbers, the card's name and power limit,
      and the result line last.
 
 Without a CUDA card it exits non-zero and prints no result.
@@ -51,6 +68,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -58,11 +76,14 @@ import torch
 
 from orb_slam2_ssd_semantic_tpu_torch.config import SlamConfig
 from orb_slam2_ssd_semantic_tpu_torch.eval.ate import evaluate_ate_xyz
+from orb_slam2_ssd_semantic_tpu_torch.io import vocabulary as voc
 from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import SyntheticSequence
 from orb_slam2_ssd_semantic_tpu_torch.mapping.local_mapping import local_mapping_step
+from orb_slam2_ssd_semantic_tpu_torch.mapping.loop_closing import LoopCloser
 from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build, cuda_match, cuda_solve
 from orb_slam2_ssd_semantic_tpu_torch.ops.match import window_mask
-from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
+from orb_slam2_ssd_semantic_tpu_torch.tracking.reloc import relocalize
+from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker, build_frame
 from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
@@ -104,6 +125,20 @@ SPD_RTOL, SPD_ATOL, SPD_RESID, SPD_RESID_ILL = 2e-2, 2e-3, 1e-3, 5e-2
 # comparison could pass with a solve that does nothing.
 POSE_ATOL = 2e-4
 POSE_MIN_MOVE = 4 * POSE_ATOL
+# Phase 6: frames tracked with relocalization on before the checks (the
+# default config's second keyframe falls at frame 31), frames of each
+# half of the localization-only test, kidnapped views, frames relocalized
+# directly (near keyframe 0, the database's only keyframe while loop
+# closing is off) and calls timed per frame; the named vocabulary's shape
+# is the trained file's (k = 10, depth = 4). Poses are held to the JAX
+# relocalization test's 5 cm.
+RELOC_TRACK_FRAMES = 40
+MBVO_FRAMES = 4
+KIDNAP_FRAMES = 3
+RELOC_FRAMES = (5, 20)
+RELOC_TIMED_CALLS = 3
+RELOC_VOCAB_SEED, RELOC_VOCAB_K, RELOC_VOCAB_DEPTH = 3, 10, 4
+RELOC_POSE_TOL = 0.05
 
 
 def _log(msg: str) -> None:
@@ -430,18 +465,36 @@ def _render_init(n_frames: int) -> None:
     _SEQ = SyntheticSequence(n_frames=n_frames)
 
 
-def _render(i: int):
-    return _SEQ.gray_depth(i)
+def _render(task):
+    """A frame of the sequence by index, or a view of its room from a
+    camera-to-world pose."""
+    if isinstance(task, int):
+        return _SEQ.gray_depth(task)
+    return _SEQ.room.render(task)
+
+
+def kidnap_poses(seq: SyntheticSequence) -> list:
+    """Phase 6's kidnapped camera: the first KIDNAP_FRAMES poses of the
+    sequence rolled by 180 degrees about the optical axis, so inside
+    keyframe 0's view but beyond what the motion model or the newest
+    keyframe's matches can follow."""
+    c, s = np.cos(np.pi), np.sin(np.pi)
+    roll = np.eye(4, dtype=np.float32)
+    roll[:2, :2] = [[c, -s], [s, c]]
+    return [(seq.poses_wc[i] @ roll).astype(np.float32) for i in range(KIDNAP_FRAMES)]
 
 
 def render_frames(n_frames: int):
-    """Render the sequence's frames in parallel worker processes (the
-    renderer is single-threaded numpy); returns (sequence, frames)."""
+    """Render the sequence's frames and phase 6's kidnapped views in one
+    pool of worker processes (the renderer is single-threaded numpy);
+    returns (sequence, frames, [(T_wc, frame)] of the kidnapped views)."""
+    seq = SyntheticSequence(n_frames=n_frames)
+    poses = kidnap_poses(seq)
     workers = max(1, min(8, os.cpu_count() or 1))
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(workers, initializer=_render_init, initargs=(n_frames,)) as pool:
-        frames = pool.map(_render, range(n_frames))
-    return SyntheticSequence(n_frames=n_frames), frames
+        out = pool.map(_render, list(range(n_frames)) + poses)
+    return seq, out[:n_frames], list(zip(poses, out[n_frames:]))
 
 
 def main_path_config() -> SlamConfig:
@@ -477,9 +530,13 @@ def _device_breakdown(prof, n_frames: int, frame_ms: float) -> dict:
 
 
 def run_main_path(dev, n_frames: int = N_FRAMES) -> dict:
+    """Phase 4. The result holds the tracker and what was rendered (also
+    phase 6's kidnapped views), for phases 5-6."""
     t0 = time.perf_counter()
-    seq, frames = render_frames(n_frames)
-    _log(f"rendered {n_frames} frames in {time.perf_counter() - t0:.1f} s")
+    rendered = render_frames(n_frames)
+    _log(f"rendered {n_frames} frames and {KIDNAP_FRAMES} kidnapped views in "
+         f"{time.perf_counter() - t0:.1f} s")
+    seq, frames, _ = rendered
     cfg = main_path_config()
     tracker = Tracker(cfg, device=dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -531,7 +588,7 @@ def run_main_path(dev, n_frames: int = N_FRAMES) -> dict:
         raise AssertionError("local mapping never ran on the main path")
     if dev.type == "cuda" and counts["window_match"] == 0:
         raise AssertionError("the main path never launched the window matcher")
-    return res | {"tracker": tracker}
+    return res | {"tracker": tracker, "rendered": rendered}
 
 
 # ---- phase 5: B2 through local BA ----------------------------------------------
@@ -571,6 +628,211 @@ def run_b2_path(tracker, dev) -> dict:
     if not pose_err <= POSE_ATOL:
         raise AssertionError(f"kernel vs plain local BA poses differ by {pose_err:.3e} "
                              f"> {POSE_ATOL}")
+    return res
+
+
+# ---- phase 6: relocalization ------------------------------------------------------
+
+def named_vocabulary(directory: Path) -> str:
+    """A DBoW2 tree vocabulary at the trained file's shape (k = 10,
+    depth = 4) built from a fixed seed and saved under `directory`; its
+    path. The trained file is not part of the tree this script may run
+    from, and the config's "auto" would fall back to the flat codebook
+    with only a warning."""
+    directory.mkdir(parents=True, exist_ok=True)
+    path = directory / f"orbvoc_random_k{RELOC_VOCAB_K}_d{RELOC_VOCAB_DEPTH}.npz"
+    voc.save_binary(voc.make_random_vocabulary(seed=RELOC_VOCAB_SEED, k=RELOC_VOCAB_K,
+                                               depth=RELOC_VOCAB_DEPTH), str(path))
+    return str(path)
+
+
+def reloc_config(vocabulary_path) -> SlamConfig:
+    base = SlamConfig()
+    return base.replace(loop=dataclasses.replace(
+        base.loop, enabled=False, enable_relocalization=True, vocabulary_path=vocabulary_path))
+
+
+def _center(T) -> np.ndarray:
+    T = T.cpu().numpy() if torch.is_tensor(T) else np.asarray(T)
+    return -T[:3, :3].T @ T[:3, 3]
+
+
+def _direct_relocalization(tracker, closer, frames, dev, sync, epnp: bool = False) -> dict:
+    """`relocalize` on freshly built frames near keyframe 0's view, with
+    no motion prior, against `closer` (with `epnp`, the frames' depth is
+    zeroed, which takes the 2D-3D EPnP branch); each must succeed with at
+    least `min_inliers_reloc` inliers within RELOC_POSE_TOL of the frame's
+    tracked pose. Returns the results and the median time of a call."""
+    cfg = tracker.cfg
+    poses = tracker.absolute_poses()
+    out, ms = [], []
+    for i in RELOC_FRAMES:
+        gray, depth = (torch.from_numpy(a).to(dev) for a in frames[i])
+        frame = build_frame(gray, torch.zeros_like(depth) if epnp else depth, cfg)
+        if (int(frame.is_stereo.sum()) < 3 * cfg.loop.sim3_min_inliers) != epnp:
+            raise AssertionError(f"frame {i} would not take the {'EPnP' if epnp else '3D-3D'} "
+                                 "branch")
+        for _ in range(RELOC_TIMED_CALLS):
+            sync()
+            t = time.perf_counter()
+            ok, T, n = relocalize(tracker.state, frame, closer, cfg)
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+        err = float(np.linalg.norm(_center(T) - _center(poses[i][1])))
+        out.append(dict(frame=i, ok=bool(ok), n_inliers=int(n), pose_err_m=err))
+        if not (ok and n >= cfg.tracking.min_inliers_reloc and err < RELOC_POSE_TOL):
+            raise AssertionError(f"direct relocalization of frame {i} with the {closer.backend}: "
+                                 f"ok={ok}, {n} inliers, {err:.4f} m from the tracked pose")
+    return dict(backend=closer.backend + (", EPnP branch (depth zeroed)" if epnp else ""),
+                frames=out, median_ms=statistics.median(ms), timed_calls=len(ms))
+
+
+_RUNTIME_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize",
+                  "cudaDeviceSynchronize")
+
+
+def _profile_call(fn, dev, prefix: str = "reloc.") -> dict:
+    """Kernel launches, copies and stream syncs of one call of `fn`, its
+    device busy time with the device events that take most of it, and per
+    profiler range named `prefix*` inside it the host time and the runtime
+    calls, from a torch.profiler window."""
+    if dev.type != "cuda":
+        return {}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us, runtime, ranges, device = 0.0, {}, {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name.startswith(prefix):  # a range's mark on the device's timeline
+                continue
+            busy_us += e.time_range.elapsed_us()
+            d = device.setdefault(e.name[:60], [0, 0.0])
+            d[0] += 1
+            d[1] += e.time_range.elapsed_us() / 1e3
+        elif e.name.startswith(prefix):
+            r = ranges.setdefault(e.name, {"host_ms": 0.0})
+            r["host_ms"] += e.time_range.elapsed_us() / 1e3
+        elif e.name in _RUNTIME_CALLS:
+            runtime[e.name] = runtime.get(e.name, 0) + 1
+            parent = e.cpu_parent
+            while parent is not None and not parent.name.startswith(prefix):
+                parent = parent.cpu_parent
+            if parent is not None:
+                r = ranges.setdefault(parent.name, {"host_ms": 0.0})
+                r[e.name] = r.get(e.name, 0) + 1
+    top = sorted(device.items(), key=lambda kv: -kv[1][1])[:4]
+    return dict(runtime_calls=runtime, device_busy_ms=busy_us / 1e3, ranges=ranges,
+                top_device_events=[dict(name=n, count=c, ms=ms) for n, (c, ms) in top])
+
+
+def run_reloc_path(dev, rendered, card: str) -> dict:
+    """Phase 6: `Tracker.process` with relocalization on a named
+    vocabulary: direct relocalization on both backends, the
+    localization-only mbVO fallback, and recovery from a kidnap. Times
+    are logged beside `card` (name and power limit)."""
+    seq, frames, kidnap = rendered
+    n_track = RELOC_TRACK_FRAMES
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    res = {}
+    with warnings.catch_warnings():
+        # The missing-vocabulary fallback would measure the codebook under
+        # the vocabulary's name: here it is an error.
+        warnings.filterwarnings("error", message="trained artifact")
+        vocab_path = named_vocabulary(Path(__file__).resolve().parent / "build" / "reloc_vocab")
+        cfg = reloc_config(vocab_path)
+        tracker = Tracker(cfg, device=dev)
+        closer = tracker.loop_closer
+        if closer.vocab is None:
+            raise AssertionError("phase 6 runs without its named vocabulary")
+        _log(f"relocalization: tracker database backend {closer.backend}, from {vocab_path} "
+             f"(seed {RELOC_VOCAB_SEED})")
+        for i in range(n_track):
+            tracker.process(*frames[i], float(seq.stamps[i]))
+        if tracker.status != "OK":
+            raise AssertionError(f"phase 6 tracking ended {tracker.status} before the checks")
+
+        # Direct relocalization, both backends.
+        res["direct"] = [_direct_relocalization(tracker, closer, frames, dev, sync)]
+        codebook = LoopCloser(reloc_config(None), device=dev)
+        codebook.on_keyframe(tracker.state, 0)
+        res["direct"].append(_direct_relocalization(tracker, codebook, frames, dev, sync))
+        res["direct"].append(_direct_relocalization(tracker, closer, frames, dev, sync, epnp=True))
+        for d in res["direct"]:
+            _log(f"direct relocalization, {d['backend']}: {json.dumps(d['frames'])}; median "
+                 f"{d['median_ms']:.2f} ms a call over {d['timed_calls']} calls (host clock, "
+                 f"ending in torch.cuda.synchronize()); card: {card}")
+        gray, depth = (torch.from_numpy(a).to(dev) for a in frames[RELOC_FRAMES[0]])
+        frame = build_frame(gray, depth, cfg)
+        mono = build_frame(gray, torch.zeros_like(depth), cfg)
+        for key, f in (("direct_call_profile", frame), ("direct_call_profile_epnp", mono)):
+            res[key] = _profile_call(lambda: relocalize(tracker.state, f, closer, cfg), dev)
+            _log(f"one direct relocalize call ({closer.backend}"
+                 f"{', EPnP branch' if f is mono else ''}): " + json.dumps(res[key]))
+
+        # Localization-only mode: the map's points die for MBVO_FRAMES
+        # frames, odometry rides on temporal points, never LOST, and
+        # relocalization is tried; with the points back, OK.
+        stage_ms = []
+
+        def process(gray, depth, stamp):
+            st = tracker.metrics.stages.get("relocalization")
+            before = (st.count, st.total_s) if st is not None else (0, 0.0)
+            tracker.process(gray, depth, stamp)
+            st = tracker.metrics.stages.get("relocalization")
+            if st is not None and st.count > before[0]:
+                stage_ms.append((st.total_s - before[1]) * 1e3)
+
+        tracker.allow_new_keyframes = False
+        saved_valid = tracker.state.points.valid
+        tracker.state = tracker.state.replace(
+            points=tracker.state.points.replace(valid=torch.zeros_like(saved_valid)))
+        mbvo = []
+        for i in range(n_track, n_track + MBVO_FRAMES):
+            process(*frames[i], float(seq.stamps[i]))
+            mbvo.append(tracker.status)
+        n_attempts = len(stage_ms)
+        tracker.state = tracker.state.replace(points=tracker.state.points.replace(valid=saved_valid))
+        for i in range(n_track + MBVO_FRAMES, n_track + 2 * MBVO_FRAMES):
+            process(*frames[i], float(seq.stamps[i]))
+            mbvo.append(tracker.status)
+        tracker.allow_new_keyframes = True
+        res["mbvo"] = dict(statuses=mbvo, relocalization_attempts=n_attempts)
+        _log("localization-only fallback: " + json.dumps(res["mbvo"]))
+        if "LOST" in mbvo[:MBVO_FRAMES] or n_attempts < 1 or mbvo[-1] != "OK":
+            raise AssertionError(f"mbVO fallback: statuses {mbvo}, {n_attempts} relocalization "
+                                 "attempts (wanted never LOST, at least one attempt, OK last)")
+
+        # The kidnap: B1's launches are counted over these frames alone.
+        last = n_track + 2 * MBVO_FRAMES - 1
+        lost_before = tracker.metrics.counters.get("lost", 0)
+        _reset_counts()
+        kid = []
+        for j, (T_wc, (gray, depth)) in enumerate(kidnap):
+            process(gray, depth, float(seq.stamps[last]) + (j + 1) / seq.fps)
+            gt = (np.linalg.inv(seq.poses_wc[0]) @ T_wc)[:3, 3]
+            err = float(np.linalg.norm(tracker.camera_positions()[-1] - gt))
+            kid.append(dict(status=tracker.status, pose_err_m=err,
+                            lost=tracker.metrics.counters.get("lost", 0) - lost_before))
+        sync()
+        counts = _counts()
+    res["kidnap"] = dict(frames=kid, launches=counts)
+    st = tracker.metrics.stages["relocalization"]
+    res |= dict(relocalization_stage_median_ms=statistics.median(stage_ms),
+                phase_s=time.perf_counter() - t_phase)
+    _log("kidnap: " + json.dumps(res["kidnap"]))
+    _log(f"relocalization stage: {st.count} calls, median {res['relocalization_stage_median_ms']:.2f}"
+         f" ms (host clock; a call ends on host syncs of its inlier counts); phase 6 took "
+         f"{res['phase_s']:.1f} s; card: {card}")
+    _log("phase 6 stages (Tracker.metrics, host clock):\n" + tracker.metrics.report())
+    if kid[0]["lost"] < 1:
+        raise AssertionError(f"the kidnap gave no LOST frame: {kid}")
+    if not all(k["status"] == "OK" and k["pose_err_m"] < RELOC_POSE_TOL for k in kid):
+        raise AssertionError(f"no recovery from the kidnap within {RELOC_POSE_TOL} m: {kid}")
+    if dev.type == "cuda" and counts["window_match"] == 0:
+        raise AssertionError("phase 6 never launched the window matcher")
     return res
 
 
@@ -620,6 +882,7 @@ def main() -> int:
     b2 = check_b2(dev)
     main_res = run_main_path(dev)
     b2_path = run_b2_path(main_res.pop("tracker"), dev)
+    reloc = run_reloc_path(dev, main_res.pop("rendered"), card)
     kernels = [
         dict(name="window_match", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/window_match.cu",
@@ -630,6 +893,7 @@ def main() -> int:
              wrapper_ms=b1["wrapper_ms"], device_ms=b1["device_ms"],
              host_prepare_ms=b1["host_prepare_ms"], host_launch_ms=b1["host_launch_ms"],
              grid=b1["grid"], launch_floor_ms=floor_ms,
+             launches_reloc_kidnap=reloc["kidnap"]["launches"]["window_match"],
              path="Tracker.process, default config"),
         dict(name="spd_solve", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/spd_solve.cu",
@@ -643,7 +907,10 @@ def main() -> int:
              path="local_mapping_step, window 12 + 8"),
     ]
     _log(f"summary: build {build_s:.2f} s, main path median {main_res['median_frame_ms']:.2f} "
-         f"ms/frame over {main_res['timed_frames']} frames")
+         f"ms/frame over {main_res['timed_frames']} frames; relocalization stage median "
+         f"{reloc['relocalization_stage_median_ms']:.2f} ms, direct relocalize median "
+         f"{reloc['direct'][0]['median_ms']:.2f} ms ({reloc['direct'][0]['backend']}) and "
+         f"{reloc['direct'][1]['median_ms']:.2f} ms ({reloc['direct'][1]['backend']}); card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

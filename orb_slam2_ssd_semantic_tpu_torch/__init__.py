@@ -8,11 +8,13 @@ on first use, see `ops/cuda_match.py` and `ops/cuda_solve.py`).
 
 Importing this package loads neither JAX nor Triton, and nothing of the
 JAX package: the host-only modules it needs (`config`, `io/synthetic`,
-`io/tum`, `eval/ate`, `utils/metrics`) are kept as copies here.
+`io/tum`, `eval/ate`, `utils/metrics`, `io/artifacts` and the numpy half
+of `io/vocabulary`) are kept as copies here.
 
-This slice covers RGB-D tracking with local mapping
-(`tracking.tracker.Tracker.process`). Loop closing, relocalization and
-dynamic masks come in later slices; the Tracker refuses configs that
+Ported so far: RGB-D tracking with local mapping and relocalization
+(`tracking.tracker.Tracker.process` with
+`LoopConfig(enabled=False, enable_relocalization=True)`). Loop closing
+and dynamic masks come in later slices; the Tracker refuses configs that
 enable them.
 """
 

@@ -1,5 +1,6 @@
 """SO(3)/SE(3) Lie-group utilities on tensors (counterpart of the JAX
-package's `geometry/se3.py`, the subset the tracking slice uses).
+package's `geometry/se3.py`, the subset that tracking and relocalization
+use; the Sim(3) algebra comes with loop closing).
 
 Poses are world-to-camera 4x4 matrices `T_cw`; every function works over
 leading batch dims. Contractions run in full f32: the entry points turn
@@ -12,6 +13,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import finite_matrices, nan_where
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:
@@ -138,6 +141,39 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply T (...,4,4) to pts (..., N, 3) -> (..., N, 3)."""
     R, t = mat_to_rt(T)
     return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def horn_sim3(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor | None = None,
+              with_scale: bool = True):
+    """Closed-form similarity/rigid alignment dst ~ s*R*src + t (Umeyama
+    least squares, the estimator of Sim3Solver::ComputeSim3). Batched over
+    leading dims; `mask` (..., N) weights the correspondences (0/1 selects
+    them). The sign fix det(U)·det(Vt) keeps R a rotation.
+
+    Returns (s, R, t)."""
+    if mask is None:
+        mask = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
+    m = mask[..., None]
+    n = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
+    mu_s = torch.sum(src * m, dim=-2) / n[..., None]
+    mu_d = torch.sum(dst * m, dim=-2) / n[..., None]
+    sc = (src - mu_s[..., None, :]) * m
+    dc = (dst - mu_d[..., None, :]) * m
+    C = torch.einsum("...ni,...nj->...ij", dc, sc) / n[..., None, None]  # cross-covariance
+    var_s = torch.sum(sc * sc, dim=(-1, -2)) / n
+    C, ok = finite_matrices(C)  # a NaN hypothesis stays NaN instead of failing the SVD
+    U, D, Vt = torch.linalg.svd(C)
+    det = torch.linalg.det(U) * torch.linalg.det(Vt)
+    S = torch.ones_like(D)
+    S[..., 2] = torch.sign(det)
+    R = nan_where(ok, U @ (S[..., :, None] * Vt))
+    D = nan_where(ok, D)
+    if with_scale:
+        s = torch.sum(D * S, dim=-1) / torch.clamp(var_s, min=1e-32)
+    else:
+        s = torch.ones(R.shape[:-2], dtype=src.dtype, device=src.device)
+    t = mu_d - s[..., None] * (R @ mu_s[..., None])[..., 0]
+    return s, R, t
 
 
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:

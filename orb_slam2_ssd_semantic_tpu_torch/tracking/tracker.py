@@ -1,8 +1,8 @@
-"""RGB-D tracking with local mapping (counterpart of the JAX package's
-`tracking/tracker.py`): frame build, motion-model tracking, reference-
-keyframe fallback, local-map tracking, keyframe insertion, and the
-host-side `Tracker` that sequences them and runs local mapping per
-keyframe.
+"""RGB-D tracking with local mapping and relocalization (counterpart of
+the JAX package's `tracking/tracker.py`): frame build, motion-model
+tracking, reference-keyframe fallback, local-map tracking, keyframe
+insertion, and the host-side `Tracker` that sequences them, runs local
+mapping per keyframe and relocalizes a LOST frame (`tracking/reloc.py`).
 
 Each `lax.cond` of the JAX version is a Python branch on a fetched
 scalar here. Branch syncs per frame (CUDA graphs come later):
@@ -12,6 +12,9 @@ scalar here. Branch syncs per frame (CUDA graphs come later):
   - a keyframe: +2 in insertion (store-full test, reference count) and
     +4 host mirrors, then in local mapping one per BA Gauss-Newton
     iteration (early-exit test), 2 phase closes and 1 keyframe-cull test.
+  - a LOST frame (or WEAK, in localization-only mode): relocalization's
+    candidate scores, and per candidate its RANSAC and refinement
+    inlier counts.
 Beyond these, every host scalar turned into a device tensor
 (`torch.tensor(x, device=...)`, `scatter` with a Python value) is a
 blocking copy, and `scatter`'s compaction of in-range indices waits for
@@ -380,10 +383,10 @@ class Tracker:
     def __init__(self, cfg: SlamConfig, device=None):
         from orb_slam2_ssd_semantic_tpu_torch.utils.metrics import Metrics
 
-        if cfg.loop.enabled or cfg.loop.enable_relocalization:
+        if cfg.loop.enabled:
             raise NotImplementedError(
-                "loop closing / relocalization are not ported yet: set "
-                "LoopConfig(enabled=False, enable_relocalization=False)")
+                "loop closing is not ported yet: set LoopConfig(enabled=False) "
+                "(relocalization alone is ported)")
         if any(getattr(cfg.dynamic, f.name) for f in dataclasses.fields(cfg.dynamic)
                if f.name.startswith("enable_")):
             raise NotImplementedError("dynamic masks are not ported yet")
@@ -398,6 +401,16 @@ class Tracker:
         self.velocity = _eye4(self.device)
         self.initialized = False
         self.frame_id = 0
+        # The keyframe database for relocalization. With loop closing off
+        # it holds only the keyframe that initialisation puts in slot 0,
+        # as in the JAX package: later keyframes enter it only through
+        # loop closing.
+        if cfg.loop.enable_relocalization:
+            from orb_slam2_ssd_semantic_tpu_torch.mapping.loop_closing import LoopCloser
+
+            self.loop_closer = LoopCloser(cfg, device=self.device)
+        else:
+            self.loop_closer = None
         self.frames_since_kf = 0
         self.ref_kf_inliers = 0
         self.allow_new_keyframes = True
@@ -436,6 +449,8 @@ class Tracker:
             self.initialized = True
             self.status = "OK"
             self.ref_kf_inliers = int((frame.is_stereo & frame.feats.valid).sum())
+            if self.loop_closer is not None:
+                self.state, _ = self.loop_closer.on_keyframe(self.state, 0)
             self._on_keyframe_inserted()
             self._record(frame, T_cw, np.eye(4, dtype=np.float32), kp_point, _eye4(self.device),
                          stamp, 0, 0)
@@ -450,6 +465,8 @@ class Tracker:
         status_code, need_kf = int(p[16]), bool(p[17] > 0.5)
         n_inl, n_matches = int(p[18]), int(p[19])
         self.status = ("OK", "WEAK", "LOST")[status_code]
+        if self.status == "LOST":
+            self.metrics.count("lost")  # as tracked, before any relocalization
 
         if need_kf and self.allow_new_keyframes:
             self._capture_retirements()
@@ -474,6 +491,24 @@ class Tracker:
             self._on_keyframe_inserted(mirror_state)
         else:
             self.frames_since_kf += 1
+            # Relocalize when LOST and, in localization-only mode, also
+            # while WEAK: the mbVO fallback (Tracking.cc:986-1047), which
+            # rides on temporal points and re-anchors to the map the
+            # moment relocalization succeeds.
+            vo_mode = self.status == "WEAK" and not self.allow_new_keyframes
+            if (self.status == "LOST" or vo_mode) and self.loop_closer is not None \
+                    and self._n_kfs >= 1:
+                from orb_slam2_ssd_semantic_tpu_torch.tracking.reloc import relocalize
+
+                with self.metrics.stage("relocalization"):
+                    ok_reloc, T_reloc, n_reloc = relocalize(self.state, frame,
+                                                            self.loop_closer, cfg)
+                if ok_reloc:
+                    self.status = "OK"
+                    T_cw = T_reloc
+                    T_np = T_reloc.cpu().numpy()
+                    velocity = _eye4(self.device)
+                    n_inl = n_reloc
 
         self._lost_streak = self._lost_streak + 1 if self.status == "LOST" else 0
         if self._lost_streak >= 10 and self._n_kfs <= cfg.tracking.reset_if_lost_with_kfs:

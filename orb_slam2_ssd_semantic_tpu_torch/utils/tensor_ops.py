@@ -9,6 +9,9 @@
   never modified (JAX arrays are immutable; callers keep pre-update
   snapshots of the map state). Duplicate `set` indices resolve
   arbitrarily on the card, as they do under XLA; the CPU writes in order.
+- `finite_matrices`: XLA's decompositions return NaN for a matrix holding
+  NaN or Inf, where torch's (LAPACK, cuSOLVER) raise; a batched RANSAC
+  meets such matrices in hypotheses from degenerate minimal sets.
 """
 
 from __future__ import annotations
@@ -56,3 +59,17 @@ def scatter(t: torch.Tensor, idx, val, op: str = "set") -> torch.Tensor:
     else:
         raise ValueError(op)
     return out
+
+
+def finite_matrices(a: torch.Tensor):
+    """(a with every non-finite matrix over the last two dims zeroed, (...)
+    mask of the finite ones). Decompose the first and put NaN where the
+    mask is False, as XLA leaves it."""
+    ok = torch.isfinite(a).all(-1).all(-1)
+    return torch.where(ok[..., None, None], a, torch.zeros_like(a)), ok
+
+
+def nan_where(ok: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x with NaN in the batch entries where `ok` (x's leading dims) is False."""
+    ok = ok.reshape(ok.shape + (1,) * (x.dim() - ok.dim()))
+    return torch.where(ok, x, torch.full_like(x, float("nan")))

@@ -130,3 +130,313 @@ def test_pose_optimize_matches_jax():
     _close(rj.T_cw, rt.T_cw, atol=ATOL)
     assert int(rt.num_inliers) == int(rj.num_inliers)
     assert dataclasses.is_dataclass(rt)
+
+
+# ---- relocalization geometry: Horn alignment, 3D-3D and EPnP RANSAC -------
+#
+# RANSAC parity runs on the SAME minimal sets: the test draws them with
+# JAX's own `split` + `categorical` (what the JAX functions draw inside),
+# so scoring and refit are compared without the two random streams. Sets
+# that repeat a row are degenerate (a rotation is not determined by two
+# points), and so, for EPnP, are sets that its own hypothesis does not
+# reproject within the threshold (a set holding an outlier: its
+# least-squares pose is off by up to radians and moves with rounding):
+# their hypotheses are implementation-defined, so per-hypothesis counts
+# are compared on the others. Random sampling is checked apart,
+# with a torch.Generator, at the JAX tests' own gates.
+
+import jax  # noqa: E402
+
+from orb_slam2_ssd_semantic_tpu.geometry import epnp as jepnp  # noqa: E402
+from orb_slam2_ssd_semantic_tpu.geometry.ransac3d import ransac_rigid as j_ransac_rigid  # noqa: E402
+from orb_slam2_ssd_semantic_tpu_torch.geometry import epnp as tepnp  # noqa: E402
+from orb_slam2_ssd_semantic_tpu_torch.geometry import ransac3d as tr3d  # noqa: E402
+
+EPNP_CAM = (JCam(), TCam())
+
+
+def _jax_sets(key, valid, n_sets, set_size):
+    logits = jnp.where(jnp.asarray(valid), 0.0, -1e9)
+    keys = jax.random.split(key, n_sets)
+    idx = jax.vmap(lambda k: jax.random.categorical(k, logits, shape=(set_size,)))(keys)
+    return np.asarray(idx).astype(np.int64)
+
+
+def _distinct(idx):
+    return np.array([len(set(r)) == len(r) for r in idx])
+
+
+def _gen(seed):
+    g = torch.Generator()
+    g.manual_seed(seed)
+    return g
+
+
+def _rigid_scene(rng, n=300, n_out=90):
+    pts = rng.normal(size=(n, 3)).astype(np.float32)
+    R_true = tse3.so3_exp(torch.tensor([0.2, -0.1, 0.3])).numpy()
+    t_true = np.array([0.5, 1.0, -0.3], np.float32)
+    dst = pts @ R_true.T + t_true
+    dst[:n_out] += rng.uniform(0.5, 2.0, (n_out, 3)).astype(np.float32)
+    return pts, dst, R_true, t_true
+
+
+def _epnp_scene(rng, n=64, rot=0.4, noise=0.0, n_out=0):
+    """World points seen by a random camera (test_epnp.make_scene), with
+    pixel noise and shuffled outlier pixels."""
+    cam = EPNP_CAM[0]
+    w = rng.normal(size=3).astype(np.float32)
+    w *= rot / max(np.linalg.norm(w), 1e-6)
+    R = tse3.so3_exp(torch.from_numpy(w)).numpy()
+    t = rng.normal(size=3).astype(np.float32) * 0.5 + np.array([0, 0, 0.3], np.float32)
+    z = rng.uniform(1.0, 6.0, size=n).astype(np.float32)
+    u = rng.uniform(40, cam.width - 40, size=n).astype(np.float32)
+    v = rng.uniform(40, cam.height - 40, size=n).astype(np.float32)
+    pc = np.stack([(u - cam.cx) * z / cam.fx, (v - cam.cy) * z / cam.fy, z], -1)
+    pw = ((pc - t) @ R).astype(np.float32)
+    uv = np.stack([u, v], -1) + rng.normal(size=(n, 2)).astype(np.float32) * noise
+    out = rng.choice(n, size=n_out, replace=False)
+    uv[out] = rng.uniform([0, 0], [cam.width, cam.height], size=(n_out, 2))
+    return pw, uv.astype(np.float32), R, t
+
+
+def _pose_err(R, t, R_gt, t_gt):
+    dR = np.asarray(R) @ R_gt.T
+    return np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)), np.linalg.norm(np.asarray(t) - t_gt)
+
+
+@pytest.mark.parametrize("with_scale", [True, False], ids=["sim3", "rigid"])
+def test_horn_sim3_matches_jax(with_scale):
+    rng = np.random.default_rng(5)
+    src = rng.normal(0, 2, (16, 24, 3)).astype(np.float32)
+    R = tse3.so3_exp(torch.from_numpy(rng.normal(0, 1, (16, 3)).astype(np.float32))).numpy()
+    dst = (1.7 * np.einsum("bij,bnj->bni", R, src) + rng.normal(0, 1, (16, 1, 3))
+           + rng.normal(0, 0.01, src.shape)).astype(np.float32)
+    mask = (rng.random((16, 24)) > 0.3).astype(np.float32)
+    for m in (None, mask):
+        sj, Rj, tj = jse3.horn_sim3(jnp.asarray(src), jnp.asarray(dst),
+                                    None if m is None else jnp.asarray(m), with_scale=with_scale)
+        with highest_precision():
+            st, Rt, tt = tse3.horn_sim3(torch.from_numpy(src), torch.from_numpy(dst),
+                                        None if m is None else torch.from_numpy(m),
+                                        with_scale=with_scale)
+        _close(sj, st)
+        _close(Rj, Rt)
+        _close(tj, tt)
+        assert np.abs(np.linalg.det(Rt.numpy()) - 1).max() < 1e-5
+
+
+def test_ransac_rigid_on_jax_minimal_sets():
+    rng = np.random.default_rng(0)
+    pts, dst, _, _ = _rigid_scene(rng)
+    valid = np.ones(300, bool)
+    valid[rng.choice(300, 20, replace=False)] = False
+    key = jax.random.PRNGKey(0)
+    idx = _jax_sets(key, valid, 256, 3)
+    sj, Rj, tj, inl_j, nj = j_ransac_rigid(jnp.asarray(pts), jnp.asarray(dst), jnp.asarray(valid),
+                                           key, threshold=0.05)
+    src_t, dst_t, valid_t = torch.from_numpy(pts), torch.from_numpy(dst), torch.from_numpy(valid)
+    with highest_precision():
+        _, inl_h = tr3d.score_rigid_sets(src_t, dst_t, valid_t, torch.from_numpy(idx), 0.05)
+        st, Rt, tt, inl_t, nt = tr3d.fit_rigid_sets(src_t, dst_t, valid_t,
+                                                    torch.from_numpy(idx), 0.05)
+    # Per-hypothesis counts of JAX's own hypotheses on the same sets.
+    s_h, R_h, t_h = jax.vmap(lambda i: jse3.horn_sim3(jnp.asarray(pts)[i], jnp.asarray(dst)[i],
+                                                      with_scale=False))(jnp.asarray(idx))
+    pred = np.einsum("sij,nj->sni", np.asarray(R_h), pts) + np.asarray(t_h)[:, None]
+    counts_j = ((np.linalg.norm(pred - dst[None], axis=-1) < 0.05) & valid).sum(-1)
+    keep = _distinct(idx)
+    assert keep.sum() > 200
+    np.testing.assert_array_equal(inl_h.sum(-1).numpy()[keep], counts_j[keep])
+    assert int(nt) == int(nj) >= 180
+    np.testing.assert_array_equal(inl_t.numpy(), np.asarray(inl_j))
+    _close(Rj, Rt, atol=1e-4)
+    _close(tj, tt, atol=1e-4)
+
+
+def test_epnp_exact_data_matches_jax():
+    pw, uv, R_gt, t_gt = _epnp_scene(np.random.default_rng(1), n=32)
+    w = np.ones(32, np.float32)
+    Rj, tj = jax.jit(jepnp._epnp, static_argnames=("cam",))(
+        jnp.asarray(pw), jnp.asarray(uv), jnp.asarray(w), EPNP_CAM[0])
+    with highest_precision():
+        Rt, tt = tepnp._epnp(torch.from_numpy(pw), torch.from_numpy(uv), torch.from_numpy(w),
+                             EPNP_CAM[1])
+    _close(Rj, Rt, atol=1e-4)
+    _close(tj, tt, atol=1e-4)
+    ang, dt = _pose_err(Rt, tt, R_gt, t_gt)
+    assert ang < 1e-3 and dt < 5e-3, (ang, dt)
+
+
+@pytest.mark.parametrize("noise,flip_axes", [(0.0, True), (0.3, False)],
+                         ids=["exact", "noisy"])
+def test_epnp_eigenvector_signs_do_not_matter(noise, flip_axes):
+    """EPnP's eigenvectors come with arbitrary signs (they differ between
+    LAPACK builds). Flipping null-space vectors (12x12) must leave the
+    pose where it was: the beta sign rules absorb them. Flipping the
+    control points' principal axes (3x3) picks other, equally valid
+    control points, which give the same pose on exact data only."""
+    pw, uv, R_gt, t_gt = _epnp_scene(np.random.default_rng(2), n=40, noise=noise)
+    pw_t, uv_t, w = torch.from_numpy(pw), torch.from_numpy(uv), torch.ones(40)
+    eigh = torch.linalg.eigh
+    signs = {12: torch.tensor([1.0, -1, 1, -1, 1, 1, -1, 1, 1, 1, -1, -1])}
+    if flip_axes:
+        signs[3] = torch.tensor([-1.0, 1, -1])
+
+    def flipped(a):
+        vals, vecs = eigh(a)
+        sign = signs.get(vecs.shape[-1])
+        return vals, vecs if sign is None else vecs * sign
+
+    with highest_precision():
+        R0, t0 = tepnp._epnp(pw_t, uv_t, w, EPNP_CAM[1])
+        torch.linalg.eigh = flipped
+        try:
+            R1, t1 = tepnp._epnp(pw_t, uv_t, w, EPNP_CAM[1])
+        finally:
+            torch.linalg.eigh = eigh
+    _close(R0, R1, atol=1e-4)
+    _close(t0, t1, atol=1e-4)
+    ang, dt = _pose_err(R1, t1, R_gt, t_gt)
+    assert ang < 1e-2 and dt < 0.05, (ang, dt)
+
+
+def test_ransac_epnp_on_jax_minimal_sets():
+    rng = np.random.default_rng(3)
+    pw, uv, _, _ = _epnp_scene(rng, n=96, noise=0.3, n_out=28)
+    valid = np.ones(96, bool)
+    valid[rng.choice(96, size=6, replace=False)] = False
+    key = jax.random.PRNGKey(3)
+    idx = _jax_sets(key, valid, 128, 6)
+    Rj, tj, inl_j, nj = jepnp.ransac_epnp(jnp.asarray(pw), jnp.asarray(uv), jnp.asarray(valid),
+                                          key, EPNP_CAM[0])
+    args = (torch.from_numpy(pw), torch.from_numpy(uv), torch.from_numpy(valid),
+            torch.from_numpy(idx), EPNP_CAM[1])
+    # The control points' axes are eigenvectors whose signs LAPACK builds
+    # choose differently; other signs are other valid control points and
+    # move a noisy pose by ~0.3 px (test above). The refit is compared with
+    # the JAX side's signs: torch's 3x3 `eigh` answers with JAX's.
+    eigh = torch.linalg.eigh
+
+    def eigh_as_jax(a):
+        if a.shape[-1] != 3:
+            return eigh(a)
+        vals, vecs = jnp.linalg.eigh(jnp.asarray(a.numpy()))
+        return torch.from_numpy(np.array(vals)), torch.from_numpy(np.array(vecs))
+
+    with highest_precision():
+        _, inl_h = tepnp.score_epnp_sets(*args)
+        torch.linalg.eigh = eigh_as_jax
+        try:
+            Rt, tt, inl_t, nt = tepnp.fit_epnp_sets(*args)
+        finally:
+            torch.linalg.eigh = eigh
+    th = 5.991 ** 0.5 * 2.0
+
+    def hyp_counts(i):
+        R, t = jepnp._epnp(jnp.asarray(pw)[i], jnp.asarray(uv)[i], jnp.ones((6,)), EPNP_CAM[0])
+        pc = jnp.asarray(pw) @ R.T + t
+        z = jnp.maximum(pc[:, 2], 1e-6)
+        proj = jnp.stack([EPNP_CAM[0].fx * pc[:, 0] / z + EPNP_CAM[0].cx,
+                          EPNP_CAM[0].fy * pc[:, 1] / z + EPNP_CAM[0].cy], -1)
+        err = jnp.linalg.norm(proj - jnp.asarray(uv), axis=-1)
+        ok = (err < th) & (pc[:, 2] > 0)
+        return jnp.sum(ok & jnp.asarray(valid)), jnp.max(err[i])
+
+    counts_j, own_err = map(np.asarray, jax.jit(jax.vmap(hyp_counts))(jnp.asarray(idx)))
+    keep = _distinct(idx) & (own_err < th)
+    assert keep.sum() >= 8 and counts_j[keep].min() > 50
+    np.testing.assert_array_equal(inl_h.sum(-1).numpy()[keep], counts_j[keep])
+    assert int(nt) == int(nj) > 50
+    np.testing.assert_array_equal(inl_t.numpy(), np.asarray(inl_j))
+    def proj(R, t):
+        pc = pw @ np.asarray(R).T + np.asarray(t)
+        return np.stack([EPNP_CAM[0].fx * pc[:, 0] / pc[:, 2] + EPNP_CAM[0].cx,
+                         EPNP_CAM[0].fy * pc[:, 1] / pc[:, 2] + EPNP_CAM[0].cy], -1)
+
+    inl = np.asarray(inl_j)
+    rms_t, rms_j = (np.sqrt(np.mean(np.sum((proj(R, t) - uv)[inl] ** 2, -1)))
+                    for R, t in ((Rt.numpy(), tt.numpy()), (Rj, tj)))
+    d = np.linalg.norm(proj(Rt.numpy(), tt.numpy()) - proj(Rj, tj), axis=-1)[inl]
+    # Pixel-consistent: both refits explain the inliers equally well
+    # (RMS within 1e-3 px), and reproject each within 1e-2 px of the
+    # other (3.1e-3 px measured: f32 null vectors of the 12x12 M^T M).
+    assert abs(rms_t - rms_j) < 1e-3, (rms_t, rms_j)
+    assert d.max() < 1e-2, d.max()
+
+
+def test_port_sampling_recovers_poses_at_the_jax_gates():
+    """The port's own random minimal sets pass the JAX package's RANSAC
+    tests' gates (test_loop_reloc.py::test_ransac_rigid_with_outliers,
+    test_epnp.py's outlier and valid-mask cases)."""
+    rng = np.random.default_rng(0)
+    pts, dst, R_true, t_true = _rigid_scene(rng)
+    with highest_precision():
+        _, R, t, _, n = tr3d.ransac_rigid(torch.from_numpy(pts), torch.from_numpy(dst),
+                                          torch.ones(300, dtype=torch.bool), _gen(0),
+                                          threshold=0.05)
+    assert int(n) >= 200
+    np.testing.assert_allclose(R.numpy(), R_true, atol=1e-3)
+    np.testing.assert_allclose(t.numpy(), t_true, atol=5e-3)
+
+    pw, uv, R_gt, t_gt = _epnp_scene(rng, n=96, noise=0.3, n_out=28)
+    valid = np.ones(96, bool)
+    valid[rng.choice(96, size=6, replace=False)] = False
+    with highest_precision():
+        R, t, _, n = tepnp.ransac_epnp(torch.from_numpy(pw), torch.from_numpy(uv),
+                                       torch.from_numpy(valid), _gen(3), EPNP_CAM[1])
+    ang, dt = _pose_err(R, t, R_gt, t_gt)
+    assert ang < 0.01 and dt < 0.05 and int(n) > 50, (ang, dt, int(n))
+
+    pw, uv, R_gt, t_gt = _epnp_scene(rng, n=64)
+    valid = np.zeros(64, bool)
+    valid[:24] = True
+    with highest_precision():
+        R, t, inl, _ = tepnp.ransac_epnp(torch.from_numpy(pw), torch.from_numpy(uv),
+                                         torch.from_numpy(valid), _gen(0), EPNP_CAM[1])
+    assert not inl.numpy()[~valid].any()
+    ang, dt = _pose_err(R, t, R_gt, t_gt)
+    assert ang < 1e-2 and dt < 0.05, (ang, dt)
+
+
+def test_minimal_sets_and_no_valid_row():
+    """Sets hold valid rows only, drawn with replacement over all of them;
+    with no valid row both RANSACs return zero inliers without raising."""
+    valid = torch.zeros(50, dtype=torch.bool)
+    valid[[3, 7, 8, 20, 49]] = True
+    idx = tr3d.sample_minimal_sets(valid, 400, 3, _gen(1))
+    assert valid[idx].all() and set(idx.unique().tolist()) == {3, 7, 8, 20, 49}
+    assert not _distinct(idx.numpy()).all()  # with replacement
+    none = torch.zeros(50, dtype=torch.bool)
+    rng = np.random.default_rng(6)
+    pts = torch.from_numpy(rng.normal(size=(50, 3)).astype(np.float32))
+    uv = torch.from_numpy(rng.uniform(0, 400, (50, 2)).astype(np.float32))
+    with highest_precision():
+        _, _, _, inl, n = tr3d.ransac_rigid(pts, pts + 1.0, none, _gen(0))
+        assert int(n) == 0 and not inl.any()
+        _, _, inl, n = tepnp.ransac_epnp(pts, uv, none, _gen(0), EPNP_CAM[1])
+        assert int(n) == 0 and not inl.any()
+
+
+def test_non_finite_hypotheses_give_nan_not_errors():
+    """A diverged hypothesis (NaN or Inf in a batch element) leaves NaN in
+    that element, as XLA's decompositions do, where torch's would raise;
+    the other elements are untouched and the NaN one scores no inlier."""
+    rng = np.random.default_rng(8)
+    src = torch.from_numpy(rng.normal(size=(4, 6, 3)).astype(np.float32))
+    dst = src + 0.5
+    bad = dst.clone()
+    bad[2, 1, 0] = float("nan")
+    bad[3, 0, 2] = float("inf")
+    with highest_precision():
+        s0, R0, t0 = tse3.horn_sim3(src, dst)
+        s1, R1, t1 = tse3.horn_sim3(src, bad)
+    assert torch.isnan(R1[2:]).all() and torch.isnan(t1[2:]).all()
+    assert torch.equal(R1[:2], R0[:2]) and torch.equal(t1[:2], t0[:2])
+    pw, uv, _, _ = _epnp_scene(rng, n=12)
+    pw_b = torch.from_numpy(np.stack([pw[:6], pw[6:]]))
+    pw_b[1, 2, 1] = float("inf")
+    uv_b = torch.from_numpy(np.stack([uv[:6], uv[6:]]))
+    with highest_precision():
+        R, t = tepnp._epnp(pw_b, uv_b, torch.ones(2, 6), EPNP_CAM[1])
+    assert torch.isfinite(R[0]).all() and torch.isnan(R[1]).all()

@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port: it loads neither JAX, Triton nor the
 JAX package; its entry points run on the card unless asked for the CPU;
-unported subsystems are refused rather than skipped."""
+unported subsystems (loop closing, dynamic masks) are refused rather than
+skipped, and relocalization alone is accepted."""
 
 import os
 import pathlib
@@ -57,15 +58,24 @@ def test_tracker_defaults_to_the_card():
 
 @pytest.mark.parametrize("cfg", [
     SlamConfig(),
-    SlamConfig(loop=LoopConfig(enabled=False, enable_relocalization=True)),
+    SlamConfig(loop=LoopConfig(enabled=True, enable_relocalization=False)),
     SlamConfig(loop=NO_LOOP, dynamic=DynamicConfig(enable_flow=True)),
     SlamConfig(loop=NO_LOOP, dynamic=DynamicConfig(enable_geometry=True)),
-], ids=["loop", "reloc", "flow", "geometry"])
+], ids=["loop", "loop_without_reloc", "flow", "geometry"])
 def test_tracker_refuses_unported_subsystems(cfg):
     from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
 
     with pytest.raises(NotImplementedError):
         Tracker(cfg, device="cpu")
+
+
+def test_tracker_accepts_relocalization_without_loop_closing():
+    from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
+
+    tr = Tracker(SlamConfig(loop=LoopConfig(enabled=False, enable_relocalization=True)),
+                 device="cpu")
+    assert tr.loop_closer is not None and tr.loop_closer.device.type == "cpu"
+    assert Tracker(SlamConfig(loop=NO_LOOP), device="cpu").loop_closer is None
 
 
 def test_precision_scope_disables_and_restores_tf32():
