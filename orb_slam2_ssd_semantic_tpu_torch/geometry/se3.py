@@ -1,6 +1,6 @@
 """SO(3)/SE(3) Lie-group utilities on tensors (counterpart of the JAX
-package's `geometry/se3.py`, the subset that tracking and relocalization
-use; the Sim(3) algebra comes with loop closing).
+package's `geometry/se3.py`): SO(3) and SE(3) for tracking and
+relocalization, and the Sim(3) algebra of loop closing.
 
 Poses are world-to-camera 4x4 matrices `T_cw`; every function works over
 leading batch dims. Contractions run in full f32: the entry points turn
@@ -174,6 +174,82 @@ def horn_sim3(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor | None = 
         s = torch.ones(R.shape[:-2], dtype=src.dtype, device=src.device)
     t = mu_d - s[..., None] * (R @ mu_s[..., None])[..., 0]
     return s, R, t
+
+
+# ---- Sim(3) ---------------------------------------------------------------
+
+
+def sim3_apply(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply similarity (s, R, t) to pts (..., N, 3)."""
+    return s[..., None, None] * (pts @ R.transpose(-1, -2)) + t[..., None, :]
+
+
+def sim3_inverse(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return s_inv, Rt, -s_inv[..., None] * (Rt @ t[..., None])[..., 0]
+
+
+def sim3_compose(s1, R1, t1, s2, R2, t2):
+    """(s1,R1,t1) o (s2,R2,t2): first apply 2, then 1."""
+    return s1 * s2, R1 @ R2, s1[..., None] * (R1 @ t2[..., None])[..., 0] + t1
+
+
+def _sim3_W(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The Sim(3) translation coupling matrix W(phi, sigma) with
+    exp([rho, phi, sigma]) = (e^sigma, so3_exp(phi), W rho) (Strasdat,
+    eq. 5.7), in the JAX module's branch-free safe form: every denominator
+    of a branch that `where` leaves unselected is substituted with 1, so
+    forward-mode derivatives at phi = 0, sigma = 0 (where `optimize_sim3`
+    takes its Jacobian) carry no NaN."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + 1e-32)
+    s = torch.exp(sigma)
+    Phi = hat(phi)
+    Phi2 = Phi @ Phi
+    one = torch.ones_like(theta2)
+
+    sig_small = torch.abs(sigma) < 1e-5
+    th_small = theta2 < 1e-10
+    sigma_safe = torch.where(sig_small, one, sigma)
+    theta_safe = torch.where(th_small, one, theta)
+    theta2_safe = torch.where(th_small, one, theta2)
+    denom = sigma_safe * sigma_safe + theta2
+
+    # C = (s - 1) / sigma, -> 1 as sigma -> 0.
+    C = torch.where(sig_small, 1.0 + sigma / 2.0, (s - 1.0) / sigma_safe)
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    A_g = (s * sin_t * sigma_safe + (1.0 - s * cos_t) * theta) / (theta_safe * denom)
+    B_g = (C - ((s * cos_t - 1.0) * sigma_safe + s * sin_t * theta) / denom) / theta2_safe
+    # sigma -> 0 limits: A -> (1 - cos)/theta^2, B -> (theta - sin)/theta^3.
+    A_0 = torch.where(th_small, 0.5 * one, (1.0 - cos_t) / theta2_safe)
+    B_0 = torch.where(th_small, one / 6.0,
+                      (theta - sin_t) / torch.where(th_small, one, theta2 * theta_safe))
+    # theta -> 0 limits (sigma != 0), from the Taylor expansion in theta.
+    A_t0 = (s * sigma_safe - s + 1.0) / (sigma_safe * sigma_safe)
+    B_t0 = (s - 1.0) / sigma_safe ** 3 - (s - s * sigma_safe / 2.0) / (sigma_safe * sigma_safe)
+    A = torch.where(sig_small, A_0, torch.where(th_small, A_t0, A_g))
+    B = torch.where(sig_small, B_0, torch.where(th_small, B_t0, B_g))
+    return (C[..., None, None] * _eye3(phi, Phi.shape) + A[..., None, None] * Phi
+            + B[..., None, None] * Phi2)
+
+
+def sim3_exp(v: torch.Tensor):
+    """Sim(3) exponential. v (..., 7) = [rho, phi, sigma] ->
+    (s (...,), R (..., 3, 3), t (..., 3))."""
+    rho, phi, sigma = v[..., 0:3], v[..., 3:6], v[..., 6]
+    W = _sim3_W(phi, sigma)
+    return torch.exp(sigma), so3_exp(phi), (W @ rho[..., None])[..., 0]
+
+
+def sim3_log(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Sim(3) logarithm -> (..., 7) = [rho, phi, sigma]. W is never
+    singular (its scale part C > 0); `solve_ex` keeps the solve free of
+    the error check that would wait for the device."""
+    sigma = torch.log(s)
+    phi = so3_log(R)
+    rho = torch.linalg.solve_ex(_sim3_W(phi, sigma), t[..., None])[0][..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
 
 
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:

@@ -271,6 +271,18 @@ def fuse_map_points(state: SlamState, cfg: SlamConfig) -> SlamState:
     return _dedup_observations(state, rows)
 
 
+def fuse_pair(state: SlamState, kf_a, kf_b, cfg: SlamConfig) -> SlamState:
+    """Bidirectional landmark fusion between two given keyframe slots: the
+    building block of LoopClosing::SearchAndFuse (LoopClosing.cc:791-824),
+    which projects loop-side landmarks into the corrected current-side
+    keyframes so the two sides of a closed loop share observations."""
+    dev = state.kfs.valid.device
+    ab = torch.tensor([kf_a, kf_b], dtype=torch.int64, device=dev)
+    state = _fuse_directions_batched(state, ab, ab.flip(0),
+                                     torch.ones((2,), dtype=torch.bool, device=dev), cfg)
+    return _dedup_observations(state, ab)
+
+
 # ---------------------------------------------------------------------------
 # Map-point maintenance
 # ---------------------------------------------------------------------------

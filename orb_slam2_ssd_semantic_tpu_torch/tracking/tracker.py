@@ -1,8 +1,9 @@
-"""RGB-D tracking with local mapping and relocalization (counterpart of
-the JAX package's `tracking/tracker.py`): frame build, motion-model
-tracking, reference-keyframe fallback, local-map tracking, keyframe
-insertion, and the host-side `Tracker` that sequences them, runs local
-mapping per keyframe and relocalizes a LOST frame (`tracking/reloc.py`).
+"""RGB-D tracking with local mapping, loop closing and relocalization
+(counterpart of the JAX package's `tracking/tracker.py`): frame build,
+motion-model tracking, reference-keyframe fallback, local-map tracking,
+keyframe insertion, and the host-side `Tracker` that sequences them, runs
+loop closing (`mapping/loop_closing.py`) and local mapping per keyframe
+and relocalizes a LOST frame (`tracking/reloc.py`).
 
 Each `lax.cond` of the JAX version is a Python branch on a fetched
 scalar here. Branch syncs per frame (CUDA graphs come later):
@@ -11,7 +12,10 @@ scalar here. Branch syncs per frame (CUDA graphs come later):
   - a frame whose motion model fails: +1 (reference-keyframe path);
   - a keyframe: +2 in insertion (store-full test, reference count) and
     +4 host mirrors, then in local mapping one per BA Gauss-Newton
-    iteration (early-exit test), 2 phase closes and 1 keyframe-cull test.
+    iteration (early-exit test), 2 phase closes and 1 keyframe-cull test;
+    with loop closing on, its database fetch, and past the recency gate
+    the host copies of detection and, per candidate, of the transform
+    estimate and the correction (`chip_smoke.py` phase 7 counts them);
   - a LOST frame (or WEAK, in localization-only mode): relocalization's
     candidate scores, and per candidate its RANSAC and refinement
     inlier counts.
@@ -383,10 +387,6 @@ class Tracker:
     def __init__(self, cfg: SlamConfig, device=None):
         from orb_slam2_ssd_semantic_tpu_torch.utils.metrics import Metrics
 
-        if cfg.loop.enabled:
-            raise NotImplementedError(
-                "loop closing is not ported yet: set LoopConfig(enabled=False) "
-                "(relocalization alone is ported)")
         if any(getattr(cfg.dynamic, f.name) for f in dataclasses.fields(cfg.dynamic)
                if f.name.startswith("enable_")):
             raise NotImplementedError("dynamic masks are not ported yet")
@@ -401,16 +401,17 @@ class Tracker:
         self.velocity = _eye4(self.device)
         self.initialized = False
         self.frame_id = 0
-        # The keyframe database for relocalization. With loop closing off
-        # it holds only the keyframe that initialisation puts in slot 0,
-        # as in the JAX package: later keyframes enter it only through
-        # loop closing.
-        if cfg.loop.enable_relocalization:
+        # Loop closing and the keyframe database of relocalization. With
+        # loop closing off the database holds only the keyframe that
+        # initialisation puts in slot 0, as in the JAX package: later
+        # keyframes enter it only through loop closing.
+        if cfg.loop.enabled or cfg.loop.enable_relocalization:
             from orb_slam2_ssd_semantic_tpu_torch.mapping.loop_closing import LoopCloser
 
             self.loop_closer = LoopCloser(cfg, device=self.device)
         else:
             self.loop_closer = None
+        self.n_loops_closed = 0
         self.frames_since_kf = 0
         self.ref_kf_inliers = 0
         self.allow_new_keyframes = True
@@ -477,6 +478,17 @@ class Tracker:
             self.metrics.count("keyframes")
             self.frames_since_kf = 0
             self.ref_kf_inliers = int((kp_point >= 0).sum())
+            # Loop closing on the post-insert state, before local mapping;
+            # a closed loop re-anchors the live pose on the corrected
+            # keyframe.
+            if self.loop_closer is not None and cfg.loop.enabled:
+                with self.metrics.stage("loop_closing"):
+                    self.state, closed = self.loop_closer.on_keyframe(self.state, kf_slot)
+                if closed:
+                    self.n_loops_closed += 1
+                    self.metrics.count("loops_closed")
+                    T_cw = self.state.kfs.T_cw[kf_slot]
+                    T_np = T_cw.cpu().numpy()
             mirror_state = self.state  # post-insert, pre-BA
             if self._n_kfs + 1 >= 3:
                 from orb_slam2_ssd_semantic_tpu_torch.mapping.local_mapping import (
@@ -496,8 +508,8 @@ class Tracker:
             # rides on temporal points and re-anchors to the map the
             # moment relocalization succeeds.
             vo_mode = self.status == "WEAK" and not self.allow_new_keyframes
-            if (self.status == "LOST" or vo_mode) and self.loop_closer is not None \
-                    and self._n_kfs >= 1:
+            if (self.status == "LOST" or vo_mode) and cfg.loop.enable_relocalization \
+                    and self.loop_closer is not None and self._n_kfs >= 1:
                 from orb_slam2_ssd_semantic_tpu_torch.tracking.reloc import relocalize
 
                 with self.metrics.stage("relocalization"):

@@ -9,6 +9,8 @@
   never modified (JAX arrays are immutable; callers keep pre-update
   snapshots of the map state). Duplicate `set` indices resolve
   arbitrarily on the card, as they do under XLA; the CPU writes in order.
+- `nanmedian`: `jnp.nanmedian` — for an even count of numbers it
+  averages the two middle ones, where `torch.nanmedian` returns the lower.
 - `finite_matrices`: XLA's decompositions return NaN for a matrix holding
   NaN or Inf, where torch's (LAPACK, cuSOLVER) raise; a batched RANSAC
   meets such matrices in hypotheses from degenerate minimal sets.
@@ -59,6 +61,13 @@ def scatter(t: torch.Tensor, idx, val, op: str = "set") -> torch.Tensor:
     else:
         raise ValueError(op)
     return out
+
+
+def nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """Median of the non-NaN entries of `x` (all of it), averaging the two
+    middle values of an even count as `jnp.nanmedian` does; NaN if every
+    entry is NaN. Linear interpolation at q = 0.5 is exactly that average."""
+    return torch.nanquantile(x.reshape(-1), 0.5)
 
 
 def finite_matrices(a: torch.Tensor):

@@ -440,3 +440,90 @@ def test_non_finite_hypotheses_give_nan_not_errors():
     with highest_precision():
         R, t = tepnp._epnp(pw_b, uv_b, torch.ones(2, 6), EPNP_CAM[1])
     assert torch.isfinite(R[0]).all() and torch.isnan(R[1]).all()
+
+
+def _sim3_twists(seed, n=64):
+    """Sim(3) tangents [rho, phi, sigma], with rows at exactly zero
+    rotation, exactly zero log-scale, both, and tiny values, so every
+    branch of `_sim3_W` is taken."""
+    v = np.random.default_rng(seed).normal(0, 0.5, (n, 7)).astype(np.float32)
+    v[0] = 0.0
+    v[1, 3:6] = 0.0
+    v[2, 6] = 0.0
+    v[3, 3:] = 0.0
+    v[4, 3:6] = 1e-7
+    v[5, 6] = 1e-7
+    return v
+
+
+def test_sim3_algebra_matches_jax():
+    v = _sim3_twists(5)
+    sj, Rj, tj = jse3.sim3_exp(jnp.asarray(v))
+    st, Rt, tt = tse3.sim3_exp(torch.from_numpy(v))
+    for a, b in ((sj, st), (Rj, Rt), (tj, tt)):
+        _close(a, b)
+    _close(jse3.sim3_log(sj, Rj, tj), tse3.sim3_log(st, Rt, tt))
+    for a, b in zip(jse3.sim3_inverse(sj, Rj, tj), tse3.sim3_inverse(st, Rt, tt)):
+        _close(a, b)
+    roll = [x[::-1] for x in (sj, Rj, tj)]
+    rollt = [x.flip(0) for x in (st, Rt, tt)]
+    for a, b in zip(jse3.sim3_compose(sj, Rj, tj, *roll), tse3.sim3_compose(st, Rt, tt, *rollt)):
+        _close(a, b)
+    pts = np.random.default_rng(6).normal(0, 2, (64, 20, 3)).astype(np.float32)
+    _close(jse3.sim3_apply(sj, Rj, tj, jnp.asarray(pts)),
+           tse3.sim3_apply(st, Rt, tt, torch.from_numpy(pts)), atol=1e-4)
+
+
+def test_sim3_exp_jacobian_at_zero_matches_jax():
+    """Forward-mode derivatives at 0, where only the small-angle and
+    small-sigma branches are selected: finite and equal to jax.jacfwd."""
+    import jax
+
+    def flat_j(x):
+        s, R, t = jse3.sim3_exp(x)
+        return jnp.concatenate([R.reshape(-1), t, s[None]])
+
+    def flat_t(x):  # a leading batch dim of 1, as optimize_sim3 takes it
+        s, R, t = tse3.sim3_exp(x[None])
+        return torch.cat([R.reshape(-1), t.reshape(-1), s])
+
+    Jj = np.asarray(jax.jacfwd(flat_j)(jnp.zeros(7, jnp.float32)))
+    Jt = torch.func.jacfwd(flat_t)(torch.zeros(7))
+    assert torch.isfinite(Jt).all()
+    _close(Jj, Jt)
+
+
+@pytest.mark.parametrize("seed,scale,fix_scale,n_out", [(0, 1.0, True, 0), (1, 1.3, False, 0),
+                                                        (7, 1.0, True, 30)],
+                         ids=["rgbd", "mono_scale", "outliers"])
+def test_optimize_sim3_matches_jax(seed, scale, fix_scale, n_out):
+    """`tests/test_sim3_opt.py`'s three cases through both packages: R and
+    t within 1e-4, inlier masks exact."""
+    from orb_slam2_ssd_semantic_tpu.mapping.sim3_opt import optimize_sim3 as j_opt
+    from orb_slam2_ssd_semantic_tpu_torch.mapping.sim3_opt import optimize_sim3 as t_opt
+    from test_sim3_opt import make_pair
+
+    rng = np.random.default_rng(seed)
+    p_i, p_j, uv_i, uv_j, s_gt, R_gt, t_gt = make_pair(rng, scale=scale)
+    n = p_i.shape[0]
+    if n_out:
+        out = rng.choice(n, size=n_out, replace=False)
+        p_j[out] = p_j[np.roll(out, 1)]
+        uv_j[out] = uv_j[np.roll(out, 1)]
+    dR = np.asarray(jse3.so3_exp(jnp.asarray(rng.normal(size=3).astype(np.float32) * 0.02)))
+    s0 = np.float32(s_gt * (1.0 if fix_scale else 1.05))
+    R0 = (dR @ R_gt).astype(np.float32)
+    t0 = (t_gt + rng.normal(size=3).astype(np.float32) * 0.05).astype(np.float32)
+    ones = np.ones(n, np.float32)
+    args = (p_i, p_j, uv_i, uv_j, ones, ones)
+    rj = j_opt(jnp.float32(s0), jnp.asarray(R0), jnp.asarray(t0), *map(jnp.asarray, args),
+               jnp.ones(n, bool), JCam(), fix_scale=fix_scale)
+    with highest_precision():
+        rt = t_opt(torch.tensor(s0), torch.from_numpy(R0), torch.from_numpy(t0),
+                   *map(torch.from_numpy, args), torch.ones(n, dtype=torch.bool), TCam(),
+                   fix_scale=fix_scale)
+    _close(rj.R, rt.R, atol=1e-4)
+    _close(rj.t, rt.t, atol=1e-4)
+    _close(rj.s, rt.s, atol=1e-4)
+    np.testing.assert_array_equal(np.asarray(rj.inliers), rt.inliers.numpy())
+    assert int(rt.num_inliers) == int(rj.num_inliers) >= 98

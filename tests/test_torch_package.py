@@ -1,7 +1,7 @@
 """Package rules of the PyTorch port: it loads neither JAX, Triton nor the
 JAX package; its entry points run on the card unless asked for the CPU;
-unported subsystems (loop closing, dynamic masks) are refused rather than
-skipped, and relocalization alone is accepted."""
+unported subsystems (dynamic masks) are refused rather than skipped, and
+loop closing and relocalization, together or alone, are accepted."""
 
 import os
 import pathlib
@@ -57,16 +57,28 @@ def test_tracker_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("cfg", [
-    SlamConfig(),
-    SlamConfig(loop=LoopConfig(enabled=True, enable_relocalization=False)),
     SlamConfig(loop=NO_LOOP, dynamic=DynamicConfig(enable_flow=True)),
     SlamConfig(loop=NO_LOOP, dynamic=DynamicConfig(enable_geometry=True)),
-], ids=["loop", "loop_without_reloc", "flow", "geometry"])
+], ids=["flow", "geometry"])
 def test_tracker_refuses_unported_subsystems(cfg):
     from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
 
     with pytest.raises(NotImplementedError):
         Tracker(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("cfg", [
+    SlamConfig(),
+    SlamConfig(loop=LoopConfig(enabled=True, enable_relocalization=False)),
+], ids=["loop", "loop_without_reloc"])
+def test_tracker_accepts_loop_closing(cfg):
+    """The default LoopConfig, and loop closing without relocalization,
+    both build a LoopCloser on the tracker's device."""
+    from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
+
+    tr = Tracker(cfg, device="cpu")
+    assert tr.loop_closer is not None and tr.loop_closer.device.type == "cpu"
+    assert tr.cfg.loop.enabled and tr.n_loops_closed == 0
 
 
 def test_tracker_accepts_relocalization_without_loop_closing():

@@ -223,11 +223,13 @@ def test_loopcloser_missing_vocabulary_warns_and_refuses_what_is_not_ported(monk
             tlc.LoopCloser(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         tlc.LoopCloser(cfg, device="cpu", mesh=object())
-    # A keyframe past the recency gate would need loop detection.
+    # A keyframe past the recency gate runs loop detection, which finds
+    # no candidate in an empty map.
     from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import empty_state
 
     state = empty_state(cfg, CPU)
     state = state.replace(kfs=state.kfs.replace(
         uid=torch.full_like(state.kfs.uid, cfg.loop.min_kfs_before_loop)))
-    with pytest.raises(NotImplementedError):
-        lc.on_keyframe(state, 0)
+    lc.prev_groups = [({0}, 1)]
+    out, closed = lc.on_keyframe(state, 0)
+    assert out is state and not closed and lc.prev_groups == [] and not lc.loops
