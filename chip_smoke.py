@@ -70,7 +70,28 @@ Phases (any failure exits non-zero; nothing is caught):
         keyframe after the first, B1 launched, and the ATE gate (the JAX
         package on the CPU misses `on < 0.75 x off` here, so `on <= off +
         5 mm`). Logs the median `loop_closing` stage time;
-  8. one JSON line of per-kernel numbers, the card's name and power limit,
+  8. the whole-sequence path (`tracking/scan_tracker.py`,
+     `tracking/segmented.py`):
+     a. `track_sequence` on phase 4's frames at the default config: per-
+        frame status and keyframe frames equal to phase 4's
+        `Tracker.process`, camera positions within 1e-4 m of its poses,
+        and a second `process` run on the same frames as close (the
+        entry points run deterministic kernels only), ATE under 1 cm, B1
+        launched; then
+        the first frames one at a time through `init_scan` and
+        `track_sequence_scan` for the per-frame time and a profiled
+        window of steady frames;
+     b. `track_sequence_segmented` on `tests/test_segmented.py`'s circuit
+        at 640x480 (145 frames, 2.35 laps, 1% depth noise, segments of
+        36) at `bench.py`'s widths with the named vocabulary, three
+        times: a verifier whose estimates agree (D = 0) with the real
+        `_correct` (at least 2 loop events and 1 correction), the test's
+        disagreeing estimates (no correction), and the plain
+        `LoopCloser`; every frame `OK` and resolved ATE under 0.15 m in
+        each; each real correction, applied again to a CPU copy of the
+        state it met, resolves the frames tracked before it to the same
+        ATE within 2 mm;
+  9. one JSON line of per-kernel numbers, the card's name and power limit,
      and the result line last.
 
 Without a CUDA card it exits non-zero and prints no result.
@@ -97,6 +118,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -122,7 +144,12 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.pose_graph import (
 )
 from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build, cuda_match, cuda_solve
 from orb_slam2_ssd_semantic_tpu_torch.ops.match import window_mask
+from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker
 from orb_slam2_ssd_semantic_tpu_torch.tracking.reloc import relocalize
+from orb_slam2_ssd_semantic_tpu_torch.tracking.segmented import (
+    resolve_trajectory,
+    track_sequence_segmented,
+)
 from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker, build_frame, insert_keyframe
 from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
 
@@ -207,6 +234,34 @@ PCG_POS_TOL = 1e-3
 JAX_7C_MEETS_GATE, ATE_SLACK = False, 0.005
 LOOP_RANGES = ("loop.detect", "loop.sim3", "loop.confirm", "loop.pose_graph", "loop.fuse",
                "loop.global_ba")
+# Phase 8. 8a: the scan on phase 4's frames against phase 4's poses, and a
+# second `Tracker.process` run against them too. The entry points run
+# deterministic kernels only (`utils/precision.py`), so both should repeat
+# phase 4 exactly; 1e-4 m leaves room for nothing but a changed order of
+# the same ops. (Before the entry points were made deterministic, two
+# `process` runs on the card parted by up to 5.4e-4 m, from frame 62's
+# keyframe on: `determinism_probe.py` shows it.) The frames up
+# to phase 4's profiled window are then replayed one at a time. 8b:
+# `tests/test_segmented.py`'s circuit at 640x480, `bench.py`'s ATE gate.
+SCAN_POS_TOL = 1e-4
+SEG_FRAMES, SEG_LAPS, SEG_NOISE, SEG_LEN = 145, 2.35, 0.01, 36
+# Each real correction of run 1 is applied again to a CPU copy of the
+# state it met, through the same code: the frames tracked before it (up to
+# the end of its segment) must then resolve to the same ATE within
+# SEG_EFFECT_TOL, a bound on global BA's own card-vs-CPU spread (phase 7b
+# measured up to 2.2e-3 in single poses on a sensitive map; an ATE over a
+# hundred frames moves less). On the CPU, `scan_reference_jax.py` holds
+# the port's `_correct` to JAX's on JAX's own states at this width: poses
+# within 4.8e-5, points within 1.1e-4, the same ATE within 3.2e-6 m. What
+# a correction does to that ATE, and run 1's resolved ATE against the
+# plain run's, are logged, not gated: both follow the state the run met,
+# which parts chaotically from any other run's: run 1 on the CPU ended at
+# 0.0261 or 0.0594 m by torch's thread count alone, and the same D = 0
+# correction moved its frames' ATE by -4.5 mm in JAX's run and by +5.9 mm
+# in a card run.
+SEG_ATE_GATE, SEG_EFFECT_TOL = 0.15, 2e-3
+SEG_MIN_EVENTS, SEG_MIN_CORRECTIONS = 2, 1
+SEG_DISAGREE = ([0.3, 0.0, 0.0], [-0.3, 0.0, 0.2])
 
 
 def _log(msg: str) -> None:
@@ -547,7 +602,7 @@ def check_b2(dev) -> dict:
 
 # ---- phase 4: the main path ------------------------------------------------------
 
-_SEQ = _LOOP_SEQ = _LOOP_ROOM = None
+_SEQ = _LOOP_SEQ = _LOOP_ROOM = _SEG_SEQ = None
 
 
 def loop_sequence() -> SyntheticSequence:
@@ -557,27 +612,45 @@ def loop_sequence() -> SyntheticSequence:
                              depth_noise=0.02)
 
 
-def _render_init(n_frames: int) -> None:
-    global _SEQ, _LOOP_SEQ, _LOOP_ROOM
+def segmented_sequence(cam: CameraConfig | None = None) -> SyntheticSequence:
+    """Phase 8b's sequence: `tests/test_segmented.py`'s multi-lap circuit
+    (at 640x480 unless `cam` says otherwise)."""
+    return SyntheticSequence(n_frames=SEG_FRAMES, cam=cam or CameraConfig(), trajectory="loop",
+                             loop_laps=SEG_LAPS, depth_noise=SEG_NOISE)
+
+
+def _render_init(n_frames: int, seg_cam: CameraConfig | None = None) -> None:
+    global _SEQ, _LOOP_SEQ, _LOOP_ROOM, _SEG_SEQ
     _SEQ = SyntheticSequence(n_frames=n_frames)
     _LOOP_SEQ = loop_sequence()
     _LOOP_ROOM = BoxRoom(seed=3, cam=CameraConfig())
+    _SEG_SEQ = segmented_sequence(seg_cam)
+
+
+def _sequential_render(seq: SyntheticSequence, i: int):
+    """Frame i of a noisy sequence, its depth noise drawn as a sequential
+    render draws it (one normal per pixel per frame from one generator,
+    so frames 0..i-1's draws are skipped)."""
+    rng = np.random.default_rng(seq.seed)
+    for _ in range(i):
+        rng.normal(0.0, seq.depth_noise, (seq.cam.height, seq.cam.width))
+    return seq.room.render(seq.poses_wc[i], seq.depth_noise, rng)
 
 
 def _render(task):
     """A frame of the sequence by index, or a view of its room from a
     camera-to-world pose; ("loop", i): frame i of phase 7c's sequence,
-    its depth noise drawn as a sequential render draws it (one normal per
-    pixel per frame from one generator, so frames 0..i-1's draws are
-    skipped); ("room3", pose): a view of phase 7a's room."""
+    its depth noise drawn as a sequential render draws it; ("seg", i):
+    frame i of phase 8b's sequence, likewise, quantized to uint8 gray and
+    uint16 mm depth as the segmented runner's tests feed it; ("room3",
+    pose): a view of phase 7a's room."""
     if isinstance(task, int):
         return _SEQ.gray_depth(task)
     if isinstance(task, tuple) and task[0] == "loop":
-        seq, i = _LOOP_SEQ, task[1]
-        rng = np.random.default_rng(seq.seed)
-        for _ in range(i):
-            rng.normal(0.0, seq.depth_noise, (seq.cam.height, seq.cam.width))
-        return seq.room.render(seq.poses_wc[i], seq.depth_noise, rng)
+        return _sequential_render(_LOOP_SEQ, task[1])
+    if isinstance(task, tuple) and task[0] == "seg":
+        g, d = _sequential_render(_SEG_SEQ, task[1])
+        return np.clip(g, 0, 255).astype(np.uint8), (d * 1000).astype(np.uint16)
     if isinstance(task, tuple) and task[0] == "room3":
         return _LOOP_ROOM.render(task[1])
     return _SEQ.room.render(task)
@@ -594,12 +667,16 @@ def kidnap_poses(seq: SyntheticSequence) -> list:
     return [(seq.poses_wc[i] @ roll).astype(np.float32) for i in range(KIDNAP_FRAMES)]
 
 
-def render_frames(n_frames: int, n_loop: int = 0):
-    """Render the sequence's frames, phase 6's kidnapped views and, with
-    `n_loop`, phase 7's views (the first `n_loop` frames of 7c's sequence,
-    7a's revisit and open-arc keyframes) in one pool of worker processes
-    (the renderer is single-threaded numpy); returns (sequence, frames,
-    [(T_wc, frame)] of the kidnapped views, phase 7's views or None)."""
+def render_frames(n_frames: int, n_loop: int = 0, n_seg: int = 0,
+                  seg_cam: CameraConfig | None = None):
+    """Render the sequence's frames, phase 6's kidnapped views, with
+    `n_loop` phase 7's views (the first `n_loop` frames of 7c's sequence,
+    7a's revisit and open-arc keyframes) and with `n_seg` the first
+    `n_seg` frames of phase 8b's sequence (at `seg_cam`, 640x480 by
+    default) in one pool of worker processes (the renderer is
+    single-threaded numpy); returns (sequence, frames, [(T_wc, frame)] of
+    the kidnapped views, phase 7's views or None, phase 8b's sequence and
+    frames or None)."""
     seq = SyntheticSequence(n_frames=n_frames)
     poses = kidnap_poses(seq)
     tasks = list(range(n_frames)) + poses
@@ -607,18 +684,22 @@ def render_frames(n_frames: int, n_loop: int = 0):
         arcs = {"revisit": closure_poses(True), "open": closure_poses(False)}
         tasks += [("loop", i) for i in range(n_loop)]
         tasks += [("room3", T) for T in arcs["revisit"] + arcs["open"]]
+    tasks += [("seg", i) for i in range(n_seg)]
     workers = max(1, min(8, os.cpu_count() or 1))
     ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(workers, initializer=_render_init, initargs=(n_frames,)) as pool:
+    with ctx.Pool(workers, initializer=_render_init, initargs=(n_frames, seg_cam)) as pool:
         out = pool.map(_render, tasks)
     n_kid = n_frames + len(poses)
-    loop = None
+    loop = seg = None
+    k = n_kid
     if n_loop:
-        k = n_kid + n_loop
-        loop = dict(seq=loop_sequence(), frames=out[n_kid:k],
-                    revisit=(arcs["revisit"], out[k:k + LOOP_N_KF]),
-                    open=(arcs["open"], out[k + LOOP_N_KF:]))
-    return seq, out[:n_frames], list(zip(poses, out[n_frames:n_kid])), loop
+        k = n_kid + n_loop + 2 * LOOP_N_KF
+        loop = dict(seq=loop_sequence(), frames=out[n_kid:n_kid + n_loop],
+                    revisit=(arcs["revisit"], out[n_kid + n_loop:n_kid + n_loop + LOOP_N_KF]),
+                    open=(arcs["open"], out[n_kid + n_loop + LOOP_N_KF:k]))
+    if n_seg:
+        seg = dict(seq=segmented_sequence(seg_cam), frames=out[k:])
+    return seq, out[:n_frames], list(zip(poses, out[n_frames:n_kid])), loop, seg
 
 
 def main_path_config() -> SlamConfig:
@@ -653,15 +734,17 @@ def _device_breakdown(prof, n_frames: int, frame_ms: float) -> dict:
                      for name, (c, us) in top])
 
 
-def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES) -> dict:
-    """Phase 4. The result holds the tracker and what was rendered (also
-    phase 6's kidnapped views and phase 7's views), for phases 5-7."""
+def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
+                  n_seg: int = SEG_FRAMES, seg_cam: CameraConfig | None = None) -> dict:
+    """Phase 4. The result holds the tracker, the poses `process` returned
+    and what was rendered (also phase 6's kidnapped views and phases 7 and
+    8b's views), for phases 5-8."""
     t0 = time.perf_counter()
-    rendered = render_frames(n_frames, n_loop)
+    rendered = render_frames(n_frames, n_loop, n_seg, seg_cam)
     n7 = n_loop + 2 * LOOP_N_KF if n_loop else 0
-    _log(f"rendered {n_frames} frames, {KIDNAP_FRAMES} kidnapped views and phase 7's {n7} "
-         f"views in {time.perf_counter() - t0:.1f} s")
-    seq, frames, _, _ = rendered
+    _log(f"rendered {n_frames} frames, {KIDNAP_FRAMES} kidnapped views, phase 7's {n7} "
+         f"views and phase 8b's {n_seg} in {time.perf_counter() - t0:.1f} s")
+    seq, frames, *_ = rendered
     cfg = main_path_config()
     tracker = Tracker(cfg, device=dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -669,13 +752,13 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES) 
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA]
                                   ) if len(profiled) else None
-    frame_ms = []
+    frame_ms, poses = [], []
     _reset_counts()
     for i, (gray, depth) in enumerate(frames):
         if i == profiled.start:
             prof.start()
         t = time.perf_counter()
-        tracker.process(gray, depth, float(seq.stamps[i]))
+        poses.append(tracker.process(gray, depth, float(seq.stamps[i])))
         sync()
         if i not in profiled:
             frame_ms.append((time.perf_counter() - t) * 1e3)
@@ -700,6 +783,7 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES) 
     _log("main path stages (Tracker.metrics, host clock):\n" + tracker.metrics.report())
     if len(profiled):
         breakdown = _device_breakdown(prof, len(profiled), res["median_frame_ms"])
+        res["profile"] = breakdown
         _log(f"profiled frames {profiled.start}-{profiled[-1]}: " + json.dumps(breakdown))
         _log(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=12,
                                        max_name_column_width=50))
@@ -713,7 +797,8 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES) 
         raise AssertionError("local mapping never ran on the main path")
     if dev.type == "cuda" and counts["window_match"] == 0:
         raise AssertionError("the main path never launched the window matcher")
-    return res | {"tracker": tracker, "rendered": rendered}
+    return res | {"tracker": tracker, "rendered": rendered, "poses": np.stack(poses),
+                  "frame_ms": frame_ms}
 
 
 # ---- phase 5: B2 through local BA ----------------------------------------------
@@ -857,7 +942,7 @@ def run_reloc_path(dev, rendered, card: str) -> dict:
     vocabulary: direct relocalization on both backends, the
     localization-only mbVO fallback, and recovery from a kidnap. Times
     are logged beside `card` (name and power limit)."""
-    seq, frames, kidnap, _ = rendered
+    seq, frames, kidnap, *_ = rendered
     n_track = RELOC_TRACK_FRAMES
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     t_phase = time.perf_counter()
@@ -1284,6 +1369,280 @@ def run_loop_path(dev, views: dict, card: str, small: bool = False) -> dict:
     return res
 
 
+# ---- phase 8: the whole-sequence path ------------------------------------------
+
+def _centres(T: np.ndarray) -> np.ndarray:
+    return np.einsum("nji,nj->ni", T[:, :3, :3], -T[:, :3, 3])
+
+
+def _kf_frames(n_kfs) -> list:
+    """Frames (1-based after frame 0) at which the keyframe count grew."""
+    n_kfs = list(n_kfs)
+    return [i + 1 for i in range(len(n_kfs)) if n_kfs[i] != (n_kfs[i - 1] if i else 1)]
+
+
+def run_scan_path(dev, main_res: dict, card: str) -> dict:
+    """8a: `track_sequence` on phase 4's frames with phase 4's config,
+    held against phase 4's `Tracker.process`, as is a second `process` run
+    on the same frames (deterministic kernels: both repeat phase 4); then the frames up to phase 4's profiled
+    window again, one at a time through `init_scan` and
+    `track_sequence_scan`, for the per-frame time and, on the card, the
+    launches and syncs a steady frame."""
+    seq, frames, *_ = main_res["rendered"]
+    tracker, poses = main_res["tracker"], main_res["poses"]
+    cfg = main_path_config()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    grays = np.stack([g for g, _ in frames])
+    depths = np.stack([d for _, d in frames])
+    n = len(frames)
+    _reset_counts()
+    sync()
+    t = time.perf_counter()
+    T_all, state, stats = scan_tracker.track_sequence(grays, depths, cfg, device=dev)
+    sync()
+    wall_s = time.perf_counter() - t
+    counts = _counts()
+    status_scan = [("OK", "WEAK", "LOST")[int(c)] for c in stats[:, 0]]
+    status_proc = [st["status"] for st in tracker.stats[1:]]
+    kf_scan = _kf_frames(stats[:, 2])
+    kf_proc = [i for i in range(1, len(tracker.stats))
+               if tracker.stats[i]["kfs"] != tracker.stats[i - 1]["kfs"]]
+    pos_diff = np.linalg.norm(_centres(T_all) - _centres(poses), axis=1)
+    pos_err = float(pos_diff.max())
+    ate = evaluate_ate_xyz(_centres(T_all), seq.gt_positions()[:n]).rmse
+
+    # The card's own spread: `Tracker.process` again on the same frames.
+    again = Tracker(cfg, device=dev)
+    poses2, again_ms = [], []
+    for i, (gray, depth) in enumerate(frames):
+        sync()
+        t = time.perf_counter()
+        poses2.append(again.process(gray, depth, float(seq.stamps[i])))
+        sync()
+        again_ms.append((time.perf_counter() - t) * 1e3)
+    spread = float(np.linalg.norm(_centres(np.stack(poses2)) - _centres(poses), axis=1).max())
+
+    # The replay: frame by frame, the window profiled on the card.
+    n_replay = min(PROFILE_FRAMES[-1] + 1, n)
+    profiled = PROFILE_FRAMES if dev.type == "cuda" and n_replay > PROFILE_FRAMES[-1] else range(0)
+    g_dev = torch.from_numpy(grays[:n_replay]).to(dev)
+    d_dev = torch.from_numpy(depths[:n_replay]).to(dev)
+    carry = scan_tracker.init_scan(map_state.empty_state(cfg, dev), g_dev[0], d_dev[0], cfg)
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA]
+                                  ) if len(profiled) else None
+    frame_ms = []
+    for i in range(1, n_replay):
+        if i == profiled.start:
+            prof.start()
+        sync()
+        t = time.perf_counter()
+        carry, *_ = scan_tracker.track_sequence_scan(carry, g_dev[i:i + 1], d_dev[i:i + 1], cfg)
+        sync()
+        if i not in profiled:
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+        if len(profiled) and i == profiled[-1]:
+            prof.stop()
+    proc_ms = main_res["frame_ms"][1:n_replay - len(profiled)]
+    res = dict(frames=n, wall_s=wall_s, mean_frame_ms=wall_s * 1e3 / (n - 1),
+               process_mean_frame_ms=main_res["mean_frame_ms"],
+               process_again_mean_frame_ms=statistics.mean(again_ms[1:]), launches=counts,
+               keyframe_frames=kf_scan, max_position_diff_m=pos_err,
+               max_position_diff_frame=int(np.argmax(pos_diff)), process_spread_m=spread,
+               position_limit_m=SCAN_POS_TOL, ate_m=ate,
+               replay_frames=len(frame_ms), replay_median_frame_ms=statistics.median(frame_ms),
+               process_median_frame_ms_same_frames=statistics.median(proc_ms),
+               process_again_median_frame_ms_same_frames=statistics.median(
+                   again_ms[1:1 + len(frame_ms)]),
+               b1_launches_per_frame=counts["window_match"] / (n - 1))
+    if len(profiled):
+        res["profile"] = _device_breakdown(prof, len(profiled), res["replay_median_frame_ms"])
+        res["process_profile"] = main_res.get("profile")
+    _log("8a scan vs Tracker.process: " + json.dumps(res) + f"; card: {card}")
+    if status_scan != status_proc:
+        raise AssertionError(f"8a: per-frame statuses differ: scan {status_scan}, process "
+                             f"{status_proc}")
+    if kf_scan != kf_proc:
+        raise AssertionError(f"8a: keyframes at {kf_scan} in the scan, {kf_proc} in process")
+    if not pos_err <= SCAN_POS_TOL:
+        raise AssertionError(f"8a: camera positions {pos_err:.3e} m from process's (limit "
+                             f"{SCAN_POS_TOL:.0e}; a second process run: {spread:.3e})")
+    if not spread <= SCAN_POS_TOL:
+        raise AssertionError(f"8a: a second process run {spread:.3e} m from the first (limit "
+                             f"{SCAN_POS_TOL:.0e})")
+    if not ate < 0.01:
+        raise AssertionError(f"8a: scan ATE {ate:.5f} m >= 0.01 m")
+    if dev.type == "cuda" and counts["window_match"] == 0:
+        raise AssertionError("8a: the scan never launched the window matcher")
+    return res
+
+
+def segmented_config(vocabulary_path, cam: CameraConfig | None = None) -> SlamConfig:
+    """`bench.py`'s widths (`th_depth=80`, 128 keyframes, 16,384 points,
+    1536 local-map candidates) with `tests/test_segmented.py`'s
+    `max_frames_between_kfs=8` and `min_kfs_before_loop=6`, on the named
+    vocabulary (at `cam`, 640x480 by default)."""
+    base = SlamConfig()
+    cam = cam or base.camera
+    return base.replace(
+        camera=dataclasses.replace(cam, th_depth=80.0),
+        map=dataclasses.replace(base.map, max_keyframes=128, max_map_points=16384),
+        tracking=dataclasses.replace(base.tracking, local_map_candidates=1536,
+                                     max_frames_between_kfs=8),
+        loop=dataclasses.replace(base.loop, enabled=True, min_kfs_before_loop=6,
+                                 vocabulary_path=vocabulary_path))
+
+
+class AgreeingCloser(LoopCloser):
+    """8b's first run: every loop-transform estimate is the map's current
+    relative pose (an implied correction D = 0, so every two estimates
+    agree), and the real `_correct`, whose minimum-discrepancy gate the
+    run's config sets to 0 (it would refuse a D = 0 loop)."""
+
+    def __init__(self, cfg: SlamConfig, device):
+        super().__init__(cfg, device=device)
+        self.calls = 0
+        # (kf, cand, T_ji, state before, state after) of each accepted correction
+        self.applied = []
+
+    def _estimate_loop_transform(self, state, kf_id: int, cand: int):
+        self.calls += 1
+        T = state.kfs.T_cw.cpu().numpy()
+        return True, (T[kf_id] @ np.linalg.inv(T[cand])).astype(np.float32), 0
+
+    def _correct(self, state, kf_id: int, cand: int, T_ji):
+        out, accepted = super()._correct(state, kf_id, cand, T_ji)
+        if accepted:
+            self.applied.append((kf_id, cand, T_ji, state, out))
+        return out, accepted
+
+
+class DisagreeingCloser(LoopCloser):
+    """8b's second run, `tests/test_segmented.py::_StubCloser`: estimates
+    whose implied corrections alternate between SEG_DISAGREE's two, and a
+    no-op `_correct`."""
+
+    def __init__(self, cfg: SlamConfig, device):
+        super().__init__(cfg, device=device)
+        self.calls = 0
+
+    def _estimate_loop_transform(self, state, kf_id: int, cand: int):
+        T = state.kfs.T_cw.cpu().numpy()
+        D = np.eye(4, dtype=np.float32)
+        D[:3, 3] = SEG_DISAGREE[self.calls % len(SEG_DISAGREE)]
+        self.calls += 1
+        return True, (D @ T[kf_id] @ np.linalg.inv(T[cand])).astype(np.float32), 0
+
+    def _correct(self, state, kf_id: int, cand: int, T_ji):
+        return state, True
+
+
+def _correction_effect(res, closer: AgreeingCloser, gt: np.ndarray) -> list:
+    """Per applied correction: the resolved ATE of the frames tracked
+    before it (up to the end of its segment) against the keyframe poses
+    before `_correct`, after it, and after the same correction applied to
+    a CPU copy of the state; the largest keyframe-pose difference between
+    the two corrections, and each one's host time."""
+    if len(closer.applied) != len(res.corrections):
+        raise AssertionError(f"8b: {len(closer.applied)} corrections accepted by `_correct`, "
+                             f"{len(res.corrections)} applied")
+    cpu = torch.device("cpu")
+    cpu_closer = LoopCloser(closer.cfg, device=cpu)
+    out = []
+    for (frame, *_), (kf, cand, T_ji, before, after) in zip(res.corrections, closer.applied):
+        t = time.perf_counter()
+        after_cpu, accepted = cpu_closer._correct(
+            map_state.state_from_numpy(map_state.state_to_numpy(before), cpu), kf, cand, T_ji)
+        cpu_s = time.perf_counter() - t
+        if not accepted:
+            raise AssertionError(f"8b: the CPU copy refused the correction at frame {frame}")
+        hi = 1 + ((frame - 1) // SEG_LEN + 1) * SEG_LEN
+        ate = {}
+        for key, st in (("before", before), ("after", after), ("after_cpu", after_cpu)):
+            part = res._replace(carry=SimpleNamespace(state=st), traj=res.traj[:hi])
+            ate[key] = evaluate_ate_xyz(resolve_trajectory(part), gt[:hi]).rmse
+        live = after.kfs.valid.cpu()
+        pose_diff = float((after.kfs.T_cw.cpu()[live] - after_cpu.kfs.T_cw[live]).abs().max())
+        out.append(dict(frame=frame, up_to_frame=hi - 1, ate_before_m=ate["before"],
+                        ate_after_m=ate["after"], ate_after_cpu_copy_m=ate["after_cpu"],
+                        pose_max_diff_vs_cpu_copy=pose_diff, cpu_copy_s=cpu_s))
+    return out
+
+
+def run_segmented_path(dev, views: dict, card: str, cam: CameraConfig | None = None) -> dict:
+    """8b: the segmented runner three times on phase 8b's circuit (a
+    missing-vocabulary warning is an error here). Returns the runs and
+    the kernels' launches over all three."""
+    seq, frames = views["seq"], views["frames"]
+    g = torch.from_numpy(np.stack([a for a, _ in frames])).to(dev)
+    d = torch.from_numpy(np.stack([b for _, b in frames])).to(dev)
+    gt = seq.gt_positions()[:len(frames)]
+    runs = {}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="trained artifact")
+        vocab_path = named_vocabulary(Path(__file__).resolve().parent / "build" / "reloc_vocab")
+        va = scan_tracker.VocabArrays.from_vocabulary(voc.load_binary(vocab_path), dev)
+        cfg = segmented_config(vocab_path, cam)
+        cfg_agree = cfg.replace(loop=dataclasses.replace(
+            cfg.loop, min_correction_translation=0.0, min_correction_rotation_deg=0.0))
+        _reset_counts()
+        for name, run_cfg, closer in (
+                ("agree", cfg_agree, AgreeingCloser(cfg_agree, dev)),
+                ("disagree", cfg, DisagreeingCloser(cfg, dev)),
+                ("plain", cfg, LoopCloser(cfg, device=dev))):
+            if closer.vocab is None:
+                raise AssertionError("8b runs without its named vocabulary")
+            t = time.perf_counter()
+            res = track_sequence_segmented(g, d, run_cfg, vocab=va, segment_len=SEG_LEN,
+                                           loop_closer=closer, device=dev)
+            wall_s = time.perf_counter() - t
+            n = len(frames) - 1
+            runs[name] = dict(
+                n_loop_events=res.n_loop_events,
+                event_frames=[int(i) + 1 for i in np.nonzero(res.stats[:, 3] >= 0)[0]],
+                corrections=[[int(c[0]), int(c[1]), int(c[2])] for c in res.corrections],
+                correction_wall_s=[float(c[3]) for c in res.corrections],
+                verifier_calls=getattr(closer, "calls", None),
+                not_ok=int((res.stats[:, 0] != 0).sum()), n_kfs_end=int(res.stats[-1, 2]),
+                ate_raw_m=evaluate_ate_xyz(_centres(res.T_all), gt).rmse,
+                ate_resolved_m=evaluate_ate_xyz(resolve_trajectory(res), gt).rmse,
+                wall_s=wall_s, scan_s=res.scan_s, correct_s=res.correct_s,
+                fps_wall=n / wall_s, fps_without_correct=n / max(wall_s - res.correct_s, 1e-9))
+            if name == "agree":
+                runs[name]["correction_effect"] = _correction_effect(res, closer, gt)
+            _log(f"8b {name}: " + json.dumps(runs[name]) + f"; card: {card}")
+        counts = _counts()
+    agree, disagree, plain = runs["agree"], runs["disagree"], runs["plain"]
+    for name, r in runs.items():
+        if r["not_ok"]:
+            raise AssertionError(f"8b {name}: {r['not_ok']} frames not OK")
+        if not r["ate_resolved_m"] < SEG_ATE_GATE:
+            raise AssertionError(f"8b {name}: resolved ATE {r['ate_resolved_m']:.4f} m >= "
+                                 f"{SEG_ATE_GATE}")
+    if not (agree["n_loop_events"] >= SEG_MIN_EVENTS
+            and len(agree["corrections"]) >= SEG_MIN_CORRECTIONS):
+        raise AssertionError(f"8b agree: {agree['n_loop_events']} events, "
+                             f"{len(agree['corrections'])} corrections (wanted >= "
+                             f"{SEG_MIN_EVENTS}, >= {SEG_MIN_CORRECTIONS})")
+    if disagree["corrections"] or disagree["n_loop_events"] < SEG_MIN_EVENTS \
+            or disagree["verifier_calls"] < 2:
+        raise AssertionError(f"8b disagree: {disagree['corrections']} corrections after "
+                             f"{disagree['n_loop_events']} events and "
+                             f"{disagree['verifier_calls']} estimates (wanted none after >= 2)")
+    _log(f"8b resolved ATE over the run: with corrections {agree['ate_resolved_m']:.6f} m, "
+         f"plain {plain['ate_resolved_m']:.6f} m, disagreeing estimates "
+         f"{disagree['ate_resolved_m']:.6f} m (logged, not gated)")
+    for e in agree["correction_effect"]:
+        if not abs(e["ate_after_m"] - e["ate_after_cpu_copy_m"]) <= SEG_EFFECT_TOL:
+            raise AssertionError(f"8b: after the correction at frame {e['frame']} frames "
+                                 f"0-{e['up_to_frame']} resolve to {e['ate_after_m']:.5f} m on the "
+                                 f"card, {e['ate_after_cpu_copy_m']:.5f} m on a CPU copy (limit "
+                                 f"{SEG_EFFECT_TOL})")
+    if dev.type == "cuda" and counts["window_match"] == 0:
+        raise AssertionError("8b: the segmented runs never launched the window matcher")
+    return dict(runs=runs, launches=counts)
+
+
 def host_times(dev) -> dict:
     """Host time of each wrapper's `prepare` and `launch`, and of the whole
     wrapper, for B1 at the main path's first shape and B2 at its size."""
@@ -1329,10 +1688,15 @@ def main() -> int:
     b1 = check_b1(dev)
     b2 = check_b2(dev)
     main_res = run_main_path(dev)
-    b2_path = run_b2_path(main_res.pop("tracker"), dev)
+    tracker = main_res.pop("tracker")
+    b2_path = run_b2_path(tracker, dev)
     rendered = main_res.pop("rendered")
     reloc = run_reloc_path(dev, rendered, card)
     loop = run_loop_path(dev, rendered[3], card)
+    t8 = time.perf_counter()
+    scan = run_scan_path(dev, main_res | {"tracker": tracker, "rendered": rendered}, card)
+    seg = run_segmented_path(dev, rendered[4], card)
+    _log(f"phase 8 took {time.perf_counter() - t8:.1f} s; card: {card}")
     kernels = [
         dict(name="window_match", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/window_match.cu",
@@ -1345,6 +1709,8 @@ def main() -> int:
              grid=b1["grid"], launch_floor_ms=floor_ms,
              launches_reloc_kidnap=reloc["kidnap"]["launches"]["window_match"],
              launches_loop=loop["b1_launches"], loop_shapes=b1["loop_shapes"],
+             launches_scan=scan["launches"]["window_match"],
+             launches_segmented=seg["launches"]["window_match"],
              path="Tracker.process, default config"),
         dict(name="spd_solve", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/spd_solve.cu",
@@ -1355,6 +1721,8 @@ def main() -> int:
              wrapper_ms=b2["wrapper_ms"], device_ms=b2["device_ms"],
              host_prepare_ms=b2["host_prepare_ms"], host_launch_ms=b2["host_launch_ms"],
              launch_floor_ms=floor_ms,
+             launches_scan=scan["launches"]["spd_solve"],
+             launches_segmented=seg["launches"]["spd_solve"],
              path="local_mapping_step, window 12 + 8"),
     ]
     _log(f"summary: build {build_s:.2f} s, main path median {main_res['median_frame_ms']:.2f} "
@@ -1364,7 +1732,10 @@ def main() -> int:
          f"{reloc['direct'][1]['median_ms']:.2f} ms ({reloc['direct'][1]['backend']}); "
          f"loop_closing stage median {loop['tracker']['on']['loop_closing_median_ms']:.2f} ms "
          f"(no closure), closing call {loop['closure']['closing_call_ms']:.2f} ms, global BA "
-         f"{loop['global_ba']['global_ba_ms_again']:.2f} ms; card: {card}")
+         f"{loop['global_ba']['global_ba_ms_again']:.2f} ms; scan median "
+         f"{scan['replay_median_frame_ms']:.2f} ms/frame (process, same frames: "
+         f"{scan['process_median_frame_ms_same_frames']:.2f}); segmented plain run "
+         f"{seg['runs']['plain']['fps_wall']:.2f} frames/s; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,11 +11,17 @@ JAX package: the host-only modules it needs (`config`, `io/synthetic`,
 `io/tum`, `eval/ate`, `utils/metrics`, `io/artifacts` and the numpy half
 of `io/vocabulary`) are kept as copies here.
 
-Ported so far: RGB-D tracking with local mapping and relocalization
-(`tracking.tracker.Tracker.process` with
-`LoopConfig(enabled=False, enable_relocalization=True)`). Loop closing
-and dynamic masks come in later slices; the Tracker refuses configs that
-enable them.
+Ported so far:
+- RGB-D tracking with local mapping (`tracking.tracker.Tracker.process`);
+- relocalization after a loss (`tracking/reloc.py`);
+- loop closing (`mapping/loop_closing.py`, run per keyframe by the
+  Tracker with the default `LoopConfig`);
+- the whole-sequence path: the scan tracker with in-scan loop detection
+  (`tracking/scan_tracker.py`) and the segmented runner with mid-run loop
+  correction (`tracking/segmented.py`).
+Dynamic masks come in a later slice: the Tracker refuses any
+`dynamic.enable_*` setting, and the scan and segmented runner refuse
+`use_flow` and `use_geom`.
 """
 
 __version__ = "0.1.0"

@@ -140,6 +140,10 @@ class DeviceVocabulary(NamedTuple):
     def n_words(self) -> int:
         return int(self.idf.shape[0])
 
+    @classmethod
+    def from_vocabulary(cls, vocab: Vocabulary, device) -> "DeviceVocabulary":
+        return to_device(vocab, device)
+
 
 def to_device(vocab: Vocabulary, device) -> DeviceVocabulary:
     return DeviceVocabulary(

@@ -22,7 +22,12 @@ tile padding; here the blocks are stacked (M, 3, 6) / (M, 3, 3) / (M, 6, 3)
 tensors contracted by batched einsums. Sums over points are `index_add_`
 in slot order (the JAX module's point sort served its sorted
 `segment_sum` only); sums over keyframes are reshape reductions on the
-slot layout (`obs_per_kf`) or `index_add_` without it.
+slot layout (`obs_per_kf`) or `index_add_` without it. An empty slot
+adds its zeros to one of `_SPREAD_ROWS` spare rows past the real ones
+(`_spread`), not to a real row: the entry points run deterministic
+kernels (`utils/precision.py`), whose scatter-add walks the repeats of
+one index in order, and half a million empty slots on one row made each
+sum take ~0.1 s on an H100 (`chip_smoke.py` phase 7).
 
 Gauge: fixed keyframes keep zeroed pose Jacobians and an identity block
 on their Hcc diagonal (g2o setFixed). The observation-sharded multi-device
@@ -61,6 +66,23 @@ class GlobalBAProblem:
 
     def replace(self, **kw) -> "GlobalBAProblem":
         return dataclasses.replace(self, **kw)
+
+
+# Spare rows for the sums' empty slots (module docstring): at full width
+# (512 x 1024 slots) each takes at most 64 of them.
+_SPREAD_ROWS = 8192
+
+
+def _spread(idx: torch.Tensor, used: torch.Tensor, n: int) -> torch.Tensor:
+    """`idx` where `used`, else one of the `_SPREAD_ROWS` rows after the
+    `n` real ones, by slot."""
+    spare = n + torch.arange(idx.shape[0], device=idx.device) % _SPREAD_ROWS
+    return torch.where(used, idx, spare)
+
+
+def _row_sum(v: torch.Tensor, key: torch.Tensor, n: int) -> torch.Tensor:
+    """(M, ...) -> (n, ...): v summed onto rows `key` (from `_spread`)."""
+    return v.new_zeros((n + _SPREAD_ROWS,) + v.shape[1:]).index_add_(0, key, v)[:n]
 
 
 @dataclasses.dataclass
@@ -108,14 +130,16 @@ def _gn_direction(e, J_pose, J_point, wc, prob: GlobalBAProblem, cfg: OptimizerC
     F = prob.T_cw.shape[0]
     P = prob.points.shape[0]
     kf, pt = prob.obs_kf, prob.obs_pt
+    # Every per-slot term of an empty slot is 0 (its weight is).
+    kf_key, pt_key = _spread(kf, prob.obs_valid, F), _spread(pt, prob.obs_valid, P)
 
     def kf_sum(v):  # (M, ...) -> (F, ...)
         if obs_per_kf is not None:
             return v.reshape(F, obs_per_kf, *v.shape[1:]).sum(1)
-        return v.new_zeros((F,) + v.shape[1:]).index_add_(0, kf, v)
+        return _row_sum(v, kf_key, F)
 
     def pt_sum(v):  # (M, ...) -> (P, ...)
-        return v.new_zeros((P,) + v.shape[1:]).index_add_(0, pt, v)
+        return _row_sum(v, pt_key, P)
 
     JtW = J_pose * wc[..., None]  # (M, 3, 6) pre-weighted pose rows
     B = torch.einsum("mri,mrj->mij", JtW, J_point)  # (M, 6, 3) coupling blocks
@@ -278,9 +302,8 @@ def _write_back(state: SlamState, prob: GlobalBAProblem, res: GlobalBAResult) ->
     pos = torch.where(pts.valid[:, None], res.points, pts.pos)
     pruned = (prob.obs_valid & ~res.inlier).reshape(F, K)
     kp_point = torch.where(pruned, torch.full_like(kfs.kp_point, -1), kfs.kp_point)
-    pruned_ids = torch.where(pruned.reshape(-1), prob.obs_pt, torch.full_like(prob.obs_pt, P))
-    n_obs = pts.n_obs.new_zeros(P + 1).index_add_(
-        0, pruned_ids, torch.ones_like(pruned_ids, dtype=pts.n_obs.dtype))[:P]
+    n_obs = _row_sum(torch.ones_like(prob.obs_pt, dtype=pts.n_obs.dtype),
+                     _spread(prob.obs_pt, pruned.reshape(-1), P), P)
     return state.replace(
         points=pts.replace(pos=pos, n_obs=torch.clamp(pts.n_obs - n_obs, min=0)),
         kfs=kfs.replace(T_cw=T_cw, kp_point=kp_point))

@@ -330,6 +330,14 @@ def insert_keyframe(state: SlamState, frame: Frame, T_cw, kp_point, frame_id: in
     return state, kp_point
 
 
+def motion_velocity(T_cw, last_T_cw, status, cfg: SlamConfig) -> torch.Tensor:
+    """The damped constant-velocity model's next velocity (the identity
+    after a LOST frame, status 2)."""
+    rel = T_cw @ se3.se3_inverse(last_T_cw)
+    return torch.where(status == 2, _eye4(T_cw.device),
+                       se3.se3_exp(cfg.tracking.velocity_damping * se3.se3_log(rel)))
+
+
 def fused_track_step(state: SlamState, gray, depth_img, last_frame: Frame, last_T_cw,
                      last_kp_point, velocity, frames_since_kf: int, ref_kf_inliers: int,
                      cfg: SlamConfig, feats: Features | None = None):
@@ -339,7 +347,6 @@ def fused_track_step(state: SlamState, gray, depth_img, last_frame: Frame, last_
     velocity, kp_point, packed) with packed = [T_cw flat (16), status,
     need_kf, n_inliers, n_matches, n_inl_mm] float32."""
     t = cfg.tracking
-    dev = last_T_cw.device
     frame = (frame_from_features(feats, depth_img, cfg) if feats is not None
              else build_frame(gray, depth_img, cfg))
     T_pred = velocity @ last_T_cw
@@ -372,8 +379,7 @@ def fused_track_step(state: SlamState, gray, depth_img, last_frame: Frame, last_
         | (res.n_inliers < t.kf_min_inliers)
     ) & (res.n_inliers >= t.min_inliers_track)
 
-    rel = T_cw @ se3.se3_inverse(last_T_cw)
-    vel_new = torch.where(status == 2, _eye4(dev), se3.se3_exp(t.velocity_damping * se3.se3_log(rel)))
+    vel_new = motion_velocity(T_cw, last_T_cw, status, cfg)
     stats = torch.stack([s.to(torch.float32) for s in
                          (status, need_kf, res.n_inliers, res.n_matches, n_inl_mm)])
     packed = torch.cat([T_cw.reshape(-1), stats])

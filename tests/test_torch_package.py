@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port: it loads neither JAX, Triton nor the
-JAX package; its entry points run on the card unless asked for the CPU;
-unported subsystems (dynamic masks) are refused rather than skipped, and
-loop closing and relocalization, together or alone, are accepted."""
+JAX package; its entry points (the Tracker and the whole-sequence scan
+and segmented runner) run on the card unless asked for the CPU; unported
+subsystems (dynamic masks) are refused rather than skipped, and loop
+closing and relocalization, together or alone, are accepted."""
 
 import os
 import pathlib
@@ -56,6 +57,39 @@ def test_tracker_defaults_to_the_card():
         Tracker(SlamConfig(loop=NO_LOOP))
 
 
+def test_scan_entries_default_to_the_card():
+    import numpy as np
+
+    from orb_slam2_ssd_semantic_tpu_torch.tracking.scan_tracker import track_sequence
+    from orb_slam2_ssd_semantic_tpu_torch.tracking.segmented import track_sequence_segmented
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    g, d = np.zeros((3, 8, 8), np.uint8), np.zeros((3, 8, 8), np.uint16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        track_sequence(g, d, SlamConfig(loop=NO_LOOP))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        track_sequence_segmented(g, d, SlamConfig(loop=NO_LOOP), segment_len=1)
+
+
+@pytest.mark.parametrize("mask", ["use_flow", "use_geom"])
+def test_scan_entries_refuse_unported_masks(mask):
+    import numpy as np
+
+    from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker
+    from orb_slam2_ssd_semantic_tpu_torch.tracking.segmented import track_sequence_segmented
+
+    cfg = SlamConfig(loop=NO_LOOP)
+    g, d = np.zeros((3, 8, 8), np.uint8), np.zeros((3, 8, 8), np.uint16)
+    with pytest.raises(NotImplementedError):
+        scan_tracker.track_sequence_scan(None, None, None, cfg, **{mask: True})
+    with pytest.raises(NotImplementedError):
+        track_sequence_segmented(g, d, cfg, segment_len=1, device="cpu", **{mask: True})
+    if mask == "use_geom":
+        with pytest.raises(NotImplementedError):
+            scan_tracker.init_scan(None, None, None, cfg, use_geom=True)
+
+
 @pytest.mark.parametrize("cfg", [
     SlamConfig(loop=NO_LOOP, dynamic=DynamicConfig(enable_flow=True)),
     SlamConfig(loop=NO_LOOP, dynamic=DynamicConfig(enable_geometry=True)),
@@ -103,6 +137,40 @@ def test_precision_scope_disables_and_restores_tf32():
         assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_precision_scope_runs_deterministic_kernels_and_restores():
+    """Inside the scope every op must be deterministic (raise, not warn,
+    where it cannot be) and nothing fills fresh memory; the caller's
+    settings come back on exit. The entry points carry the scope."""
+    import torch.utils.deterministic as det
+
+    from orb_slam2_ssd_semantic_tpu_torch.mapping.loop_closing import LoopCloser
+    from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker, segmented
+    from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
+    from orb_slam2_ssd_semantic_tpu_torch.utils import precision
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(), det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(False)
+    det.fill_uninitialized_memory = True
+    try:
+        with precision.highest_precision():
+            assert torch.are_deterministic_algorithms_enabled()
+            assert not torch.is_deterministic_algorithms_warn_only_enabled()
+            assert not det.fill_uninitialized_memory
+        assert not torch.are_deterministic_algorithms_enabled()
+        assert det.fill_uninitialized_memory
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with precision.highest_precision():
+            assert not torch.is_deterministic_algorithms_warn_only_enabled()
+        assert torch.is_deterministic_algorithms_warn_only_enabled()
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        det.fill_uninitialized_memory = saved[2]
+    for fn in (Tracker.process, scan_tracker.track_sequence_scan, scan_tracker.track_sequence,
+               segmented.track_sequence_segmented, LoopCloser.on_keyframe):
+        assert getattr(fn, "__wrapped__", None) is not None, fn.__qualname__
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
