@@ -91,7 +91,35 @@ Phases (any failure exits non-zero; nothing is caught):
         each; each real correction, applied again to a CPU copy of the
         state it met, resolves the frames tracked before it to the same
         ATE within 2 mm;
-  9. one JSON line of per-kernel numbers, the card's name and power limit,
+  9. the dynamic masks and the device renderer (counters zeroed before,
+     read after; B1's launches here are `launches_dynamic`):
+     a. `io/device_render.render_frames` on the card: `bench.py`'s walker
+        scene (`SyntheticSequence(trajectory="sway")` poses of its 337
+        frames, `cross_walkers(..., n_objects=3)`, 1% depth noise) at
+        640x480, cut to its first WALK_FRAMES frames; two frames rendered
+        without noise on the card and on the CPU by the same function:
+        depth within 1 mm on >= 99.9% of pixels, gray within 1 level on
+        >= 99% (the CPU test's limits); ms a frame on the card;
+     b. the flow mask (`flow_dynamic_mask_fitted`) and the geometry mask
+        (`geometry_dynamic_mask`) on 9a's frames, on the card and on a CPU
+        copy of their inputs with the same minimal sets: at most 0.5% of
+        pixels differ (the CPU parity test's limit against JAX); each
+        mask's ms on the card;
+     c. `tests/test_accuracy_gates.py`'s dynamic runs at 640x480 through
+        `Tracker.process`: 20 frames of the static and of the 2-object
+        dynamic scene, `max_frames_between_kfs=4`, loop closing and
+        relocalization off, four runs (static, unmasked, flow, geometry),
+        that test's gates as written (unmasked > 1.25 x static; flow <
+        unmasked + 0.25 x static; geometry < unmasked; geometry < 1.9 x
+        static); the `mask.flow` and `mask.geometry` stage times, the
+        launches and syncs of a profiled steady masked frame;
+     d. `track_sequence_segmented` on 9a's frames at `bench.py`'s
+        `cfg_dyn` (its widths, `min_static_area=0.45`) with the named
+        vocabulary, three runs (unmasked, `use_flow`, `use_geom`): no
+        frame LOST, the masked runs' resolved ATE under 0.15 m
+        (`bench.py`'s gate), geometry <= unmasked; the unmasked run's ATE
+        is logged, not gated;
+ 10. one JSON line of per-kernel numbers, the card's name and power limit,
      and the result line last.
 
 Without a CUDA card it exits non-zero and prints no result.
@@ -123,10 +151,25 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig, SlamConfig
+from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig, DynamicConfig, SlamConfig
+from orb_slam2_ssd_semantic_tpu_torch.dynamic.flowmask import (
+    downscaled_flow,
+    flow_dynamic_mask_fitted,
+    grid_correspondences,
+)
+from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import (
+    empty_ref_views,
+    geometry_dynamic_mask,
+    insert_ref_view,
+)
 from orb_slam2_ssd_semantic_tpu_torch.eval.ate import evaluate_ate_xyz
+from orb_slam2_ssd_semantic_tpu_torch.io import device_render
 from orb_slam2_ssd_semantic_tpu_torch.io import vocabulary as voc
-from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import BoxRoom, SyntheticSequence
+from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import (
+    BoxRoom,
+    SyntheticSequence,
+    cross_walkers,
+)
 from orb_slam2_ssd_semantic_tpu_torch.mapping import map_state
 from orb_slam2_ssd_semantic_tpu_torch.mapping.global_ba import global_ba_step_state
 from orb_slam2_ssd_semantic_tpu_torch.mapping.local_mapping import (
@@ -143,6 +186,7 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.pose_graph import (
     optimize_pose_graph_pcg,
 )
 from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build, cuda_match, cuda_solve
+from orb_slam2_ssd_semantic_tpu_torch.ops.homography import sample_minimal_sets
 from orb_slam2_ssd_semantic_tpu_torch.ops.match import window_mask
 from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker
 from orb_slam2_ssd_semantic_tpu_torch.tracking.reloc import relocalize
@@ -262,6 +306,22 @@ SEG_FRAMES, SEG_LAPS, SEG_NOISE, SEG_LEN = 145, 2.35, 0.01, 36
 SEG_ATE_GATE, SEG_EFFECT_TOL = 0.15, 2e-3
 SEG_MIN_EVENTS, SEG_MIN_CORRECTIONS = 2, 1
 SEG_DISAGREE = ([0.3, 0.0, 0.0], [-0.3, 0.0, 0.2])
+
+# Phase 9. 9a/9d: `bench.py`'s walker scene (its N_FRAMES = 337 poses and
+# walkers, so the motion per frame is the bench's), cut to a prefix of
+# WALK_FRAMES = 1 + 2 x WALK_SEG_LEN frames to fit the script's time limit;
+# 9a's render limits are `tests/test_torch_device_render.py`'s. 9b: the
+# CPU parity test's 0.5% of pixels for both masks. 9c:
+# `tests/test_accuracy_gates.py::dynamic_runs` (20 frames, a keyframe at
+# least every 4) and its gates; 9d: `bench.py`'s ATE gate.
+WALK_SEQ_FRAMES, WALK_FRAMES, WALK_SEG_LEN, WALK_NOISE = 337, 97, 48, 0.01
+RENDER_CHECK_FRAMES = (0, 60)
+RENDER_DEPTH_MIN, RENDER_GRAY_MIN = 0.999, 0.99
+MASK_PAIRS = ((1, 2), (60, 61))
+MASK_PIXEL_TOL = 0.005
+DYN_FRAMES, DYN_KF_GAP = 20, 4
+DYN_PROFILE_FRAMES = range(12, 14)
+WALK_ATE_GATE = 0.15
 
 
 def _log(msg: str) -> None:
@@ -1477,20 +1537,27 @@ def run_scan_path(dev, main_res: dict, card: str) -> dict:
     return res
 
 
-def segmented_config(vocabulary_path, cam: CameraConfig | None = None) -> SlamConfig:
+def bench_config(vocabulary_path, cam: CameraConfig | None = None) -> SlamConfig:
     """`bench.py`'s widths (`th_depth=80`, 128 keyframes, 16,384 points,
-    1536 local-map candidates) with `tests/test_segmented.py`'s
-    `max_frames_between_kfs=8` and `min_kfs_before_loop=6`, on the named
-    vocabulary (at `cam`, 640x480 by default)."""
+    1536 local-map candidates) on the named vocabulary, at `cam` (640x480
+    by default)."""
     base = SlamConfig()
     cam = cam or base.camera
     return base.replace(
         camera=dataclasses.replace(cam, th_depth=80.0),
         map=dataclasses.replace(base.map, max_keyframes=128, max_map_points=16384),
-        tracking=dataclasses.replace(base.tracking, local_map_candidates=1536,
-                                     max_frames_between_kfs=8),
-        loop=dataclasses.replace(base.loop, enabled=True, min_kfs_before_loop=6,
-                                 vocabulary_path=vocabulary_path))
+        tracking=dataclasses.replace(base.tracking, local_map_candidates=1536),
+        loop=dataclasses.replace(base.loop, vocabulary_path=vocabulary_path))
+
+
+def segmented_config(vocabulary_path, cam: CameraConfig | None = None) -> SlamConfig:
+    """`bench_config` with `tests/test_segmented.py`'s
+    `max_frames_between_kfs=8` and `min_kfs_before_loop=6`, loop closing
+    on."""
+    cfg = bench_config(vocabulary_path, cam)
+    return cfg.replace(
+        tracking=dataclasses.replace(cfg.tracking, max_frames_between_kfs=8),
+        loop=dataclasses.replace(cfg.loop, enabled=True, min_kfs_before_loop=6))
 
 
 class AgreeingCloser(LoopCloser):
@@ -1643,6 +1710,276 @@ def run_segmented_path(dev, views: dict, card: str, cam: CameraConfig | None = N
     return dict(runs=runs, launches=counts)
 
 
+# ---- phase 9: the dynamic masks and the device renderer ---------------------
+
+_DYN9 = None
+
+
+def _dyn9_init(cam: CameraConfig) -> None:
+    global _DYN9
+    _DYN9 = {"static": SyntheticSequence(n_frames=DYN_FRAMES, cam=cam),
+             "dynamic": SyntheticSequence(n_frames=DYN_FRAMES, cam=cam, dynamic_objects=True,
+                                          n_dynamic=2)}
+
+
+def _dyn9_render(task):
+    kind, i = task
+    return _DYN9[kind].gray_depth(i)
+
+
+def walker_scene(n_frames: int):
+    """`bench.py`'s `sway_dyn` scene, its first `n_frames` frames: (the
+    sequence, camera-to-world poses (n, 4, 4), `render_frames` keywords)."""
+    seq = SyntheticSequence(n_frames=WALK_SEQ_FRAMES, trajectory="sway")
+    poses = np.stack(seq.poses_wc).astype(np.float32)[:n_frames]
+    walkers = cross_walkers(WALK_SEQ_FRAMES, seq.room.size, n_objects=3)[:n_frames]
+    boxes = tuple(tuple(map(tuple, b)) for b in seq.room.boxes)
+    return seq, poses, dict(size=seq.room.size, boxes=boxes, seed=seq.seed, moving_boxes=walkers)
+
+
+def check_render(dev, cam: CameraConfig, n_frames: int, card: str) -> dict:
+    """9a: the walker scene on the card (with depth noise), the time a
+    frame, and RENDER_CHECK_FRAMES without noise against the CPU."""
+    seq, poses, kw = walker_scene(n_frames)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    g, d = device_render.render_frames(poses, cam, depth_noise=WALK_NOISE, device=dev, **kw)
+    sync()
+    render_s = time.perf_counter() - t
+    pick = list(RENDER_CHECK_FRAMES)
+    sub = dict(kw, moving_boxes=kw["moving_boxes"][pick])
+    g_dev, d_dev = device_render.render_frames(poses[pick], cam, device=dev, **sub)
+    g_cpu, d_cpu = device_render.render_frames(poses[pick], cam, device="cpu", **sub)
+    dd = (d_dev.cpu().to(torch.int64) - d_cpu.to(torch.int64)).abs()
+    dg = (g_dev.cpu().to(torch.int64) - g_cpu.to(torch.int64)).abs()
+    res = dict(frames=n_frames, ms_per_frame=render_s * 1e3 / n_frames,
+               depth_within_1mm=float((dd <= 1).double().mean()),
+               gray_within_1=float((dg <= 1).double().mean()),
+               gray_equal=float((dg == 0).double().mean()),
+               moving_pixels_frame0=int(((d_dev[0].cpu() != device_render.render_frames(
+                   poses[:1], cam, device=dev, **dict(kw, moving_boxes=None))[1][0].cpu()))
+                   .sum()))
+    _log("9a device render: " + json.dumps(res) + f"; card: {card}")
+    if g.shape != (n_frames, cam.height, cam.width) or g.dtype != torch.uint8 \
+            or d.dtype != torch.uint16:
+        raise AssertionError(f"9a: rendered {tuple(g.shape)} {g.dtype}/{d.dtype}")
+    if not res["depth_within_1mm"] >= RENDER_DEPTH_MIN:
+        raise AssertionError(f"9a: depth within 1 mm of the CPU on {res['depth_within_1mm']:.5f} "
+                             f"of pixels < {RENDER_DEPTH_MIN}")
+    if not res["gray_within_1"] >= RENDER_GRAY_MIN:
+        raise AssertionError(f"9a: gray within 1 level of the CPU on {res['gray_within_1']:.5f} "
+                             f"of pixels < {RENDER_GRAY_MIN}")
+    if res["moving_pixels_frame0"] == 0:
+        raise AssertionError("9a: no walker in view in frame 0")
+    return dict(res=res, seq=seq, grays=g, depths=d)
+
+
+def check_masks(dev, cam: CameraConfig, scene: dict, card: str) -> dict:
+    """9b: both masks on 9a's frames on the card against a CPU copy of
+    their inputs (the flow mask with the card's minimal sets), and each
+    mask's time on the card. The geometry mask's ring holds frames 0 and
+    30's views at their ground-truth poses, their keypoints on a 16 px
+    grid with the rendered depth."""
+    cpu = torch.device("cpu")
+    cfg = DynamicConfig()
+    seq, g, d = scene["seq"], scene["grays"], scene["depths"]
+    T_cw = [np.linalg.inv(p).astype(np.float32) for p in seq.poses_wc]
+    ys, xs = np.mgrid[8:cam.height:16, 8:cam.width:16]
+    uv = np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32)
+    dbs = []  # the ring on the card, and its CPU copy
+    for dv in (dev, cpu):
+        db = empty_ref_views(cfg.geom_db_size, uv.shape[0], dv)
+        for i in (0, 30):
+            dep = d[i].cpu().numpy()[ys.ravel(), xs.ravel()].astype(np.float32) * 1e-3
+            db = insert_ref_view(db, *(torch.from_numpy(a).to(dv) for a in
+                                       (T_cw[i], uv, dep, dep > 0)))
+        dbs.append(db)
+
+    def card_ms(fn):
+        return _time_ms(fn, reps=5, rounds=3) if dev.type == "cuda" else None
+
+    out = dict(flow=[], geometry=[])
+    with highest_precision():
+        for a, b in MASK_PAIRS:
+            prev, cur = g[a].float(), g[b].float()
+            src, dst, valid = grid_correspondences(downscaled_flow(prev, cur, cfg))
+            idx = sample_minimal_sets(valid)
+            m_dev = flow_dynamic_mask_fitted(prev, cur, cfg, idx=idx).cpu()
+            m_cpu = flow_dynamic_mask_fitted(prev.cpu(), cur.cpu(), cfg, idx=idx.cpu())
+            ms = card_ms(lambda: flow_dynamic_mask_fitted(prev, cur, cfg))
+            out["flow"].append(dict(frames=[a, b], differ=float((m_dev != m_cpu).double().mean()),
+                                    dynamic=float((~m_dev).double().mean()), ms=ms))
+            depth_m = d[b].float() * 1e-3
+            T = torch.from_numpy(T_cw[b])
+            T_dev = T.to(dev)
+            gm_dev = geometry_dynamic_mask(dbs[0], T_dev, depth_m, cam, cfg).cpu()
+            gm_cpu = geometry_dynamic_mask(dbs[1], T, depth_m.cpu(), cam, cfg)
+            gms = card_ms(lambda: geometry_dynamic_mask(dbs[0], T_dev, depth_m, cam, cfg))
+            out["geometry"].append(dict(frames=[b],
+                                        differ=float((gm_dev != gm_cpu).double().mean()),
+                                        dynamic=float((~gm_dev).double().mean()), ms=gms))
+    _log("9b masks, card against CPU: " + json.dumps(out) + f"; limit {MASK_PIXEL_TOL} of "
+         f"pixels; card: {card}")
+    for kind, rows in out.items():
+        for r in rows:
+            if not r["differ"] <= MASK_PIXEL_TOL:
+                raise AssertionError(f"9b: the {kind} mask differs from the CPU's on "
+                                     f"{r['differ']:.5f} of pixels (limit {MASK_PIXEL_TOL})")
+        if not any(r["dynamic"] > 0 for r in rows):
+            raise AssertionError(f"9b: the {kind} mask marked no pixel dynamic: vacuous")
+    return out
+
+
+def dynamic_configs(cam: CameraConfig) -> dict:
+    """`tests/test_accuracy_gates.py::dynamic_runs`'s four configs (at
+    `cam`; the test's is the default 640x480)."""
+    base = SlamConfig(camera=cam)
+    base = base.replace(tracking=dataclasses.replace(base.tracking,
+                                                     max_frames_between_kfs=DYN_KF_GAP),
+                        loop=dataclasses.replace(base.loop, enabled=False,
+                                                 enable_relocalization=False))
+    return {"static": base, "unmasked": base,
+            "flow": base.replace(dynamic=DynamicConfig(enable_flow=True)),
+            "geom": base.replace(dynamic=DynamicConfig(enable_geometry=True))}
+
+
+def check_masked_tracking(dev, cam: CameraConfig, card: str) -> dict:
+    """9c: the four dynamic runs through `Tracker.process` and their
+    gates; stage times, and a profiled steady frame of each masked run."""
+    ctx = multiprocessing.get_context("spawn")
+    tasks = [(k, i) for k in ("static", "dynamic") for i in range(DYN_FRAMES)]
+    t0 = time.perf_counter()
+    with ctx.Pool(max(1, min(8, os.cpu_count() or 1)), initializer=_dyn9_init,
+                  initargs=(cam,)) as pool:
+        out = pool.map(_dyn9_render, tasks)
+    frames = {"static": out[:DYN_FRAMES], "dynamic": out[DYN_FRAMES:]}
+    _log(f"9c: rendered {len(tasks)} frames in {time.perf_counter() - t0:.1f} s")
+    seq = SyntheticSequence(n_frames=DYN_FRAMES, cam=cam)
+    gt = seq.gt_positions()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    runs = {}
+    for name, cfg in dynamic_configs(cam).items():
+        tracker = Tracker(cfg, device=dev)
+        profiled = DYN_PROFILE_FRAMES if dev.type == "cuda" and name in ("flow", "geom") \
+            else range(0)
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA]
+                                      ) if len(profiled) else None
+        frame_ms = []
+        for i, (gray, depth) in enumerate(frames["static" if name == "static" else "dynamic"]):
+            if len(profiled) and i == profiled.start:
+                prof.start()
+            sync()
+            t = time.perf_counter()
+            tracker.process(gray, depth, float(seq.stamps[i]))
+            sync()
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+            if len(profiled) and i == profiled[-1]:
+                prof.stop()
+        stages = tracker.metrics.stages
+        kf = [i for i in range(1, len(tracker.stats))
+              if tracker.stats[i]["kfs"] != tracker.stats[i - 1]["kfs"]]
+        r = dict(ate_m=evaluate_ate_xyz(tracker.camera_positions(), gt).rmse,
+                 statuses=[s["status"] for s in tracker.stats], keyframe_frames=kf,
+                 median_frame_ms=statistics.median(frame_ms[1:]))
+        for st in ("mask.flow", "mask.geometry"):
+            if st in stages:
+                r[f"{st}_mean_ms"] = stages[st].total_s * 1e3 / stages[st].count
+                r[f"{st}_count"] = stages[st].count
+        if len(profiled):
+            r["profile"] = _device_breakdown(prof, len(profiled), r["median_frame_ms"])
+            r["profiled_frames"] = [profiled.start, profiled[-1]]
+        runs[name] = r
+        _log(f"9c {name}: " + json.dumps(r) + f"; card: {card}")
+    ate = {k: v["ate_m"] for k, v in runs.items()}
+    gates = {
+        "unmasked > 1.25 x static": ate["unmasked"] > 1.25 * ate["static"],
+        "flow < unmasked + 0.25 x static": ate["flow"] < ate["unmasked"] + 0.25 * ate["static"],
+        "geom < unmasked": ate["geom"] < ate["unmasked"],
+        "geom < 1.9 x static": ate["geom"] < 1.9 * ate["static"],
+    }
+    _log(f"9c ATE (m): {json.dumps(ate)}; gates: {json.dumps(gates)}")
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"9c: {failed} with ATEs {ate}")
+    if runs["flow"].get("mask.flow_count") != DYN_FRAMES - 1 \
+            or runs["geom"].get("mask.geometry_count") != DYN_FRAMES - 1:
+        raise AssertionError("9c: a mask stage did not run on every frame after the first")
+    return dict(runs=runs, ate=ate)
+
+
+def walker_config(vocabulary_path, cam: CameraConfig) -> SlamConfig:
+    """`bench.py`'s `cfg_dyn`: `bench_config` with `min_static_area=0.45`."""
+    cfg = bench_config(vocabulary_path, cam)
+    return cfg.replace(dynamic=dataclasses.replace(cfg.dynamic, min_static_area=0.45))
+
+
+def run_masked_segmented(dev, cam: CameraConfig, scene: dict, card: str) -> dict:
+    """9d: the segmented runner on 9a's frames, unmasked, with the flow mask
+    and with the geometry mask."""
+    seq, g, d = scene["seq"], scene["grays"], scene["depths"]
+    gt = seq.gt_positions()[:g.shape[0]]
+    runs = {}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="trained artifact")
+        vocab_path = named_vocabulary(Path(__file__).resolve().parent / "build" / "reloc_vocab")
+        va = scan_tracker.VocabArrays.from_vocabulary(voc.load_binary(vocab_path), dev)
+        cfg = walker_config(vocab_path, cam)
+        for name, kw in (("unmasked", {}), ("flow", dict(use_flow=True)),
+                         ("geom", dict(use_geom=True))):
+            closer = LoopCloser(cfg, device=dev)
+            if closer.vocab is None:
+                raise AssertionError("9d runs without its named vocabulary")
+            t = time.perf_counter()
+            res = track_sequence_segmented(g, d, cfg, vocab=va, segment_len=WALK_SEG_LEN,
+                                           loop_closer=closer, device=dev, **kw)
+            wall_s = time.perf_counter() - t
+            n = g.shape[0] - 1
+            runs[name] = dict(
+                lost=int((res.stats[:, 0] == 2).sum()), ok=int((res.stats[:, 0] == 0).sum()),
+                n_kfs_end=int(res.stats[-1, 2]), n_loop_events=res.n_loop_events,
+                corrections=[[int(c[0]), int(c[1]), int(c[2])] for c in res.corrections],
+                ate_raw_m=evaluate_ate_xyz(_centres(res.T_all), gt).rmse,
+                ate_resolved_m=evaluate_ate_xyz(resolve_trajectory(res), gt).rmse,
+                wall_s=wall_s, scan_s=res.scan_s, correct_s=res.correct_s, fps_wall=n / wall_s)
+            _log(f"9d {name}: " + json.dumps(runs[name]) + f"; card: {card}")
+    for name, r in runs.items():
+        if r["lost"]:
+            raise AssertionError(f"9d {name}: {r['lost']} frames LOST")
+    for name in ("flow", "geom"):
+        if not runs[name]["ate_resolved_m"] < WALK_ATE_GATE:
+            raise AssertionError(f"9d {name}: resolved ATE {runs[name]['ate_resolved_m']:.4f} m "
+                                 f">= {WALK_ATE_GATE}")
+    if not runs["geom"]["ate_resolved_m"] <= runs["unmasked"]["ate_resolved_m"]:
+        raise AssertionError(f"9d: geometry-masked ATE {runs['geom']['ate_resolved_m']:.4f} m > "
+                             f"unmasked {runs['unmasked']['ate_resolved_m']:.4f} m")
+    _log(f"9d resolved ATE: unmasked {runs['unmasked']['ate_resolved_m']:.6f} m (logged, not "
+         f"gated), flow {runs['flow']['ate_resolved_m']:.6f} m, geometry "
+         f"{runs['geom']['ate_resolved_m']:.6f} m; card: {card}")
+    return runs
+
+
+def run_dynamic_path(dev, card: str, cam: CameraConfig | None = None,
+                     n_frames: int = WALK_FRAMES) -> dict:
+    """Phase 9 at `cam` (640x480 by default); the launch counters are
+    zeroed before and read after."""
+    cam = cam or CameraConfig()
+    t9 = time.perf_counter()
+    _reset_counts()
+    scene = check_render(dev, cam, n_frames, card)
+    masks = check_masks(dev, cam, scene, card)
+    tracked = check_masked_tracking(dev, cam, card)
+    seg = run_masked_segmented(dev, cam, scene, card)
+    counts = _counts()
+    _log(f"phase 9 took {time.perf_counter() - t9:.1f} s, launches {json.dumps(counts)}; "
+         f"card: {card}")
+    if dev.type == "cuda" and counts["window_match"] == 0:
+        raise AssertionError("9: the masked runs never launched the window matcher")
+    return dict(render=scene["res"], masks=masks, tracking=tracked, segmented=seg,
+                launches=counts)
+
+
 def host_times(dev) -> dict:
     """Host time of each wrapper's `prepare` and `launch`, and of the whole
     wrapper, for B1 at the main path's first shape and B2 at its size."""
@@ -1697,6 +2034,7 @@ def main() -> int:
     scan = run_scan_path(dev, main_res | {"tracker": tracker, "rendered": rendered}, card)
     seg = run_segmented_path(dev, rendered[4], card)
     _log(f"phase 8 took {time.perf_counter() - t8:.1f} s; card: {card}")
+    dyn = run_dynamic_path(dev, card)
     kernels = [
         dict(name="window_match", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/window_match.cu",
@@ -1711,6 +2049,7 @@ def main() -> int:
              launches_loop=loop["b1_launches"], loop_shapes=b1["loop_shapes"],
              launches_scan=scan["launches"]["window_match"],
              launches_segmented=seg["launches"]["window_match"],
+             launches_dynamic=dyn["launches"]["window_match"],
              path="Tracker.process, default config"),
         dict(name="spd_solve", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/spd_solve.cu",
@@ -1723,6 +2062,7 @@ def main() -> int:
              launch_floor_ms=floor_ms,
              launches_scan=scan["launches"]["spd_solve"],
              launches_segmented=seg["launches"]["spd_solve"],
+             launches_dynamic=dyn["launches"]["spd_solve"],
              path="local_mapping_step, window 12 + 8"),
     ]
     _log(f"summary: build {build_s:.2f} s, main path median {main_res['median_frame_ms']:.2f} "
@@ -1735,7 +2075,13 @@ def main() -> int:
          f"{loop['global_ba']['global_ba_ms_again']:.2f} ms; scan median "
          f"{scan['replay_median_frame_ms']:.2f} ms/frame (process, same frames: "
          f"{scan['process_median_frame_ms_same_frames']:.2f}); segmented plain run "
-         f"{seg['runs']['plain']['fps_wall']:.2f} frames/s; card: {card}")
+         f"{seg['runs']['plain']['fps_wall']:.2f} frames/s; device render "
+         f"{dyn['render']['ms_per_frame']:.2f} ms/frame; mask.flow "
+         f"{dyn['tracking']['runs']['flow']['mask.flow_mean_ms']:.2f} ms, mask.geometry "
+         f"{dyn['tracking']['runs']['geom']['mask.geometry_mean_ms']:.2f} ms; 9d resolved ATE "
+         f"{dyn['segmented']['unmasked']['ate_resolved_m']:.4f} / "
+         f"{dyn['segmented']['flow']['ate_resolved_m']:.4f} / "
+         f"{dyn['segmented']['geom']['ate_resolved_m']:.4f} m; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

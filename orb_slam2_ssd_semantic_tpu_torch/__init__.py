@@ -18,10 +18,18 @@ Ported so far:
   Tracker with the default `LoopConfig`);
 - the whole-sequence path: the scan tracker with in-scan loop detection
   (`tracking/scan_tracker.py`) and the segmented runner with mid-run loop
-  correction (`tracking/segmented.py`).
-Dynamic masks come in a later slice: the Tracker refuses any
-`dynamic.enable_*` setting, and the scan and segmented runner refuse
-`use_flow` and `use_geom`.
+  correction (`tracking/segmented.py`);
+- the dynamic masks: dense LK flow (`ops/flow.py`), the RANSAC
+  homography (`ops/homography.py`), the flow mask (`dynamic/flowmask.py`)
+  and the multi-view geometry mask (`dynamic/geommask.py`), run by the
+  Tracker's `dynamic.enable_*` and by the scan's and the segmented
+  runner's `use_flow` and `use_geom`;
+- the device renderer of the synthetic scenes (`io/device_render.py`).
+Refused, not ported yet: semantics (`semantic/`), dense mapping
+(`dense/`), persistence (`io/map_io.py`), the `system.py` facade and the
+multi-device code (`parallel/`). The first four have no module here; the
+multi-device entries raise NotImplementedError (`LoopCloser`'s `mesh`,
+the sharded global BA).
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,15 @@
 """Dense image ops on (H, W) float32 tensors: separable 1-D correlation,
-the pyramid resize, and keypoint depth sampling (counterpart of the JAX
-package's `ops/image.py`, the functions the tracking slice uses)."""
+the pyramid resize, keypoint depth sampling, and the gradients, box
+filter, bilinear sampler and binary morphology of the dynamic masks
+(counterpart of the JAX package's `ops/image.py`)."""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
@@ -137,3 +141,95 @@ def robust_depth_sample(depth: torch.Tensor, uv: torch.Tensor, rel_tol: float = 
     val = torch.where(smooth, bil, near)
     valid = in_b & (val > 1e-6)
     return torch.where(valid, val, torch.zeros_like(val)), valid
+
+
+def pad_reflect(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
+    """Reflect padding (`jnp.pad(mode="reflect")`, the edge pixel not
+    repeated) of the last two dims of an (H, W) or (C, H, W) tensor."""
+    if pad_h == 0 and pad_w == 0:
+        return x
+    squeeze = x.dim() == 2
+    out = F.pad(x[None] if squeeze else x, (pad_w, pad_w, pad_h, pad_h), mode="reflect")
+    return out[0] if squeeze else out
+
+
+def sobel(img: torch.Tensor):
+    """Sobel gradients (gx, gy) with reflect padding."""
+    p = pad_reflect(img, 1, 1)
+    kd, ks = (-1.0, 0.0, 1.0), (1.0, 2.0, 1.0)
+    gx = conv1d_axis(conv1d_axis(p, kd, axis=-1), ks, axis=-2)
+    gy = conv1d_axis(conv1d_axis(p, ks, axis=-1), kd, axis=-2)
+    return gx, gy
+
+
+def box_filter(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Mean filter with reflect padding over the last two dims of an
+    (H, W) or (C, H, W) tensor: rows first, then columns."""
+    k = (float(np.float32(1.0 / ksize)),) * ksize
+    pad = ksize // 2
+    x = conv1d_axis(pad_reflect(img, pad, 0), k, axis=-2)
+    return conv1d_axis(pad_reflect(x, 0, pad), k, axis=-1)
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor, fill: float = 0.0):
+    """Sample img (H, W) at continuous pixel coords uv (..., 2) = (x, y)
+    with edge-clamped taps. Returns (values (...,), in-bounds mask)."""
+    h, w = img.shape
+    u = uv[..., 0]
+    v = uv[..., 1]
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    du = u - u0
+    dv = v - v0
+    u0i = u0.to(torch.int64)
+    v0i = v0.to(torch.int64)
+    valid = (u >= 0) & (u <= w - 1) & (v >= 0) & (v <= h - 1)
+
+    def tap(vi, ui):
+        return img[vi.clamp(0, h - 1), ui.clamp(0, w - 1)]
+
+    val = (
+        tap(v0i, u0i) * (1 - du) * (1 - dv)
+        + tap(v0i, u0i + 1) * du * (1 - dv)
+        + tap(v0i + 1, u0i) * (1 - du) * dv
+        + tap(v0i + 1, u0i + 1) * du * dv
+    )
+    return torch.where(valid, val, torch.full_like(val, fill)), valid
+
+
+def _ellipse_se(ksize: int) -> np.ndarray:
+    """Ellipse structuring element; an even ksize gives the odd size
+    below it (10 -> 9 x 9), as the JAX version does."""
+    r = (ksize - 1) / 2.0
+    y, x = np.mgrid[-math.floor(r):math.floor(r) + 1, -math.floor(r):math.floor(r) + 1]
+    return ((x / r) ** 2 + (y / r) ** 2 <= 1.0 + 1e-9).astype(np.float32)
+
+
+def _dilate_se(x: torch.Tensor, se: np.ndarray) -> torch.Tensor:
+    """Grayscale dilation of (H, W) by a 0/1 structuring element: the max
+    over the shifted windows where the element is set, -inf outside."""
+    k = se.shape[0]
+    pad = k // 2
+    h, w = x.shape
+    xp = F.pad(x, (pad, pad, pad, pad), value=float("-inf"))
+    wins = [xp[dy:dy + h, dx:dx + w] for dy, dx in zip(*np.nonzero(se))]
+    return torch.amax(torch.stack(wins), dim=0)
+
+
+def erode(mask: torch.Tensor, ksize: int, iterations: int = 1) -> torch.Tensor:
+    """Binary erosion with a ksize x ksize ellipse (cv::erode with
+    MORPH_ELLIPSE)."""
+    se = _ellipse_se(ksize)
+    out = mask.to(torch.float32)
+    for _ in range(iterations):
+        out = -_dilate_se(-out, se)
+    return out > 0.5
+
+
+def dilate(mask: torch.Tensor, ksize: int, iterations: int = 1) -> torch.Tensor:
+    """Binary dilation with a ksize x ksize ellipse."""
+    se = _ellipse_se(ksize)
+    out = mask.to(torch.float32)
+    for _ in range(iterations):
+        out = _dilate_se(out, se)
+    return out > 0.5

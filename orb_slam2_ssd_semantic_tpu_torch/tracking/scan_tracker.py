@@ -17,10 +17,14 @@ branch under `lax.cond`. Here the scan is a host loop over the frames:
 - per-frame poses, stats and keyframe-relative records stay on the
   device until the caller fetches them.
 
+With `use_flow` the flow mask runs on every frame against the frame
+before it (`prev_grays`); with `use_geom` the geometry mask runs against
+the carry's ring of keyframe views (seeded with frame 0 by `init_scan`,
+fed by every keyframe event), at the motion model's predicted pose.
+
 Nothing writes into its input: a segment run twice from one carry gives
 the same result, which the segmented runner (`tracking/segmented.py`)
-relies on when it corrects the map between segments. `use_flow` and
-`use_geom` (the dynamic masks) are not ported yet and raise.
+relies on when it corrects the map between segments.
 """
 
 from __future__ import annotations
@@ -32,6 +36,13 @@ import torch
 
 from orb_slam2_ssd_semantic_tpu_torch import device as device_mod
 from orb_slam2_ssd_semantic_tpu_torch.config import SlamConfig
+from orb_slam2_ssd_semantic_tpu_torch.dynamic.flowmask import flow_dynamic_mask_fitted
+from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import (
+    GeomRefViews,
+    empty_ref_views,
+    geometry_dynamic_mask,
+    insert_ref_view,
+)
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
 from orb_slam2_ssd_semantic_tpu_torch.io import vocabulary as voc
 from orb_slam2_ssd_semantic_tpu_torch.mapping.local_mapping import local_mapping_step
@@ -63,17 +74,11 @@ class ScanCarry:
     word_db: torch.Tensor  # (F, K) int64 per-keyframe BoW words (-1 empty)
     val_db: torch.Tensor  # (F, K) f32 deduplicated TF-IDF values
     cons_count: torch.Tensor  # (F,) int32 consecutive-consistency counters
-    # The geometry mask's reference views; None (the mask is not ported).
-    geom_db: object = None
+    # The geometry mask's reference views (`use_geom`), else None.
+    geom_db: GeomRefViews | None = None
 
     def replace(self, **kw) -> "ScanCarry":
         return dataclasses.replace(self, **kw)
-
-
-def refuse_masks(use_flow: bool, use_geom: bool) -> None:
-    """Refuse the dynamic masks, which are not ported yet."""
-    if use_flow or use_geom:
-        raise NotImplementedError("dynamic masks (use_flow, use_geom) are not ported yet")
 
 
 def _empty_bow_db(cfg: SlamConfig, device):
@@ -93,8 +98,8 @@ def _bow_add(word_db, val_db, slot, desc, valid, vocab: VocabArrays):
 def init_scan(state: SlamState, gray0, depth0, cfg: SlamConfig,
               vocab: VocabArrays | None = None, use_geom: bool = False) -> ScanCarry:
     """Frame 0 becomes the first keyframe at the identity pose, with every
-    keypoint of valid depth spawned as a map point."""
-    refuse_masks(False, use_geom)
+    keypoint of valid depth spawned as a map point; with `use_geom` it is
+    also the first view of the geometry mask's ring."""
     dev = state.kfs.valid.device
     frame = tk.build_frame(gray0, depth0, cfg)
     T0 = torch.eye(4, dtype=torch.float32, device=dev)
@@ -104,11 +109,16 @@ def init_scan(state: SlamState, gray0, depth0, cfg: SlamConfig,
     if vocab is not None:
         word_db, val_db, _, _ = _bow_add(word_db, val_db, state.last_kf, frame.feats.desc,
                                          frame.feats.valid, vocab)
+    geom_db = None
+    if use_geom:
+        geom_db = insert_ref_view(
+            empty_ref_views(cfg.dynamic.geom_db_size, cfg.orb.max_keypoints, dev), T0,
+            frame.feats.uv, frame.kp_depth, frame.feats.valid & frame.is_stereo)
     return ScanCarry(
         state=state, last_frame=frame, last_T_cw=T0, last_kp_point=kp_point,
         velocity=torch.eye(4, dtype=torch.float32, device=dev), frames_since_kf=0,
         ref_kf_inliers=int((frame.is_stereo & frame.feats.valid).sum()), frame_idx=1,
-        word_db=word_db, val_db=val_db, cons_count=cons)
+        word_db=word_db, val_db=val_db, cons_count=cons, geom_db=geom_db)
 
 
 def _detect_loop(state: SlamState, frame, word_db, val_db, cons, cfg: SlamConfig,
@@ -166,7 +176,8 @@ def _detect_loop(state: SlamState, frame, word_db, val_db, cons, cfg: SlamConfig
 @precision.scoped
 def track_sequence_scan(carry: ScanCarry, grays: torch.Tensor, depths: torch.Tensor,
                         cfg: SlamConfig, vocab: VocabArrays | None = None,
-                        use_flow: bool = False, use_geom: bool = False, with_rel: bool = False):
+                        prev_grays: torch.Tensor | None = None, use_flow: bool = False,
+                        use_geom: bool = False, with_rel: bool = False):
     """grays (N, H, W) uint8 (or float32 [0, 255]) and depths (N, H, W)
     uint16 mm (or float32 metres) on the carry's device.
 
@@ -177,9 +188,18 @@ def track_sequence_scan(carry: ScanCarry, grays: torch.Tensor, depths: torch.Ten
     reference keyframe's pose as the map holds it right after the frame
     (post-insert, post-local-BA), the SaveTrajectoryTUM record
     (System.cc:476-502) that `segmented.resolve_trajectory` resolves
-    against the final keyframe poses. `carry` is left as it was."""
-    refuse_masks(use_flow, use_geom)
+    against the final keyframe poses. `carry` is left as it was.
+
+    `use_flow` masks each frame with the flow against `prev_grays[i]`
+    (the frames before these; None: the frame before within `grays`, and
+    for the first frame the frame itself). `use_geom` needs a carry from
+    `init_scan(..., use_geom=True)`."""
     t = cfg.tracking
+    if use_flow and prev_grays is None:
+        prev_grays = torch.cat([grays[:1], grays[:-1]])
+    geom_db = carry.geom_db
+    if use_geom and geom_db is None:
+        raise ValueError("use_geom needs a carry made by init_scan(..., use_geom=True)")
     state = carry.state
     last_frame, last_T_cw, last_kp_point = carry.last_frame, carry.last_T_cw, carry.last_kp_point
     velocity = carry.velocity
@@ -189,9 +209,16 @@ def track_sequence_scan(carry: ScanCarry, grays: torch.Tensor, depths: torch.Ten
     no_cand = torch.full((), -1, dtype=torch.int64, device=last_T_cw.device)
     T_out, stats_out, rel_out, uid_out = [], [], [], []
     for i in range(grays.shape[0]):
+        mask = None
+        if use_flow:
+            mask = flow_dynamic_mask_fitted(prev_grays[i], grays[i], cfg.dynamic)
+        if use_geom:
+            gmask = geometry_dynamic_mask(geom_db, velocity @ last_T_cw,
+                                          tk.depth_metres(depths[i]), cfg.camera, cfg.dynamic)
+            mask = gmask if mask is None else mask & gmask
         state, frame, T_cw, vel, kp_point, packed = tk.fused_track_step(
             state, grays[i], depths[i], last_frame, last_T_cw, last_kp_point, velocity,
-            frames_since_kf, ref_kf_inliers, cfg)
+            frames_since_kf, ref_kf_inliers, cfg, static_mask=mask)
         status = packed[16].to(torch.int64)
         loop_cand = no_cand
         if bool(packed[17] > 0.5):  # need_kf: host sync
@@ -202,6 +229,9 @@ def track_sequence_scan(carry: ScanCarry, grays: torch.Tensor, depths: torch.Ten
             if vocab is not None:
                 word_db, val_db, cons, loop_cand = _detect_loop(state, frame, word_db, val_db,
                                                                 cons, cfg, vocab)
+            if use_geom:
+                geom_db = insert_ref_view(geom_db, T_cw, frame.feats.uv, frame.kp_depth,
+                                          frame.feats.valid & frame.is_stereo)
             if t.reanchor_on_kf:
                 # Re-anchor on the BA-refined pose; the velocity follows it.
                 T_cw = state.kfs.T_cw[state.last_kf]
@@ -224,7 +254,7 @@ def track_sequence_scan(carry: ScanCarry, grays: torch.Tensor, depths: torch.Ten
     new_carry = carry.replace(
         state=state, last_frame=last_frame, last_T_cw=last_T_cw, last_kp_point=last_kp_point,
         velocity=velocity, frames_since_kf=frames_since_kf, ref_kf_inliers=ref_kf_inliers,
-        frame_idx=frame_idx, word_db=word_db, val_db=val_db, cons_count=cons)
+        frame_idx=frame_idx, word_db=word_db, val_db=val_db, cons_count=cons, geom_db=geom_db)
     out = (new_carry, torch.stack(T_out), torch.stack(stats_out))
     if with_rel:
         out = out + (torch.stack(rel_out), torch.stack(uid_out))

@@ -123,9 +123,10 @@ def track_sequence_segmented(
     (tensors or numpy; moved to the device once). N must satisfy
     (N - 1) % segment_len == 0: frame 0 seeds `init_scan`. `vocab`: the
     vocabulary on the device, for in-scan loop detection. `device=None`
-    runs on the card (raises without one). `use_flow` and `use_geom` (the
-    dynamic masks) are not ported yet and raise."""
-    scan_tracker.refuse_masks(use_flow, use_geom)
+    runs on the card (raises without one). `use_flow` runs the flow mask
+    on every frame of every segment against the frame before it
+    (Tracking.cc:688-719); `use_geom` runs the geometry mask against the
+    scan's ring of keyframe views (Geometry.cc:50-518)."""
     dev = device_mod.resolve(device)
     g_dev = torch.as_tensor(g_dev).to(dev)
     d_dev = torch.as_tensor(d_dev).to(dev)
@@ -135,7 +136,8 @@ def track_sequence_segmented(
     n_seg = (n - 1) // segment_len
 
     lc = loop_closer or LoopCloser(cfg, device=dev)
-    carry = scan_tracker.init_scan(empty_state(cfg, dev), g_dev[0], d_dev[0], cfg, vocab=vocab)
+    carry = scan_tracker.init_scan(empty_state(cfg, dev), g_dev[0], d_dev[0], cfg, vocab=vocab,
+                                   use_geom=use_geom)
     T_parts: list = [np.eye(4, dtype=np.float32)[None]]
     stats_parts: list = []
     traj: list = [(0, np.eye(4, dtype=np.float32))]
@@ -163,7 +165,9 @@ def track_sequence_segmented(
         hi = lo + S
         t_scan = time.perf_counter()
         carry_after, T_seg, stats_seg, T_rel, ref_uid = scan_tracker.track_sequence_scan(
-            carry, g_dev[lo:hi], d_dev[lo:hi], cfg, vocab=vocab, with_rel=True)
+            carry, g_dev[lo:hi], d_dev[lo:hi], cfg, vocab=vocab, with_rel=True,
+            prev_grays=g_dev[lo - 1:hi - 1] if use_flow else None, use_flow=use_flow,
+            use_geom=use_geom)
         kfs_after = carry_after.state.kfs
         packed = _pack_segment(T_seg, stats_seg, T_rel, ref_uid, kfs_after.uid, kfs_after.valid,
                                kfs_after.frame_id)

@@ -19,6 +19,10 @@ scalar here. Branch syncs per frame (CUDA graphs come later):
   - a LOST frame (or WEAK, in localization-only mode): relocalization's
     candidate scores, and per candidate its RANSAC and refinement
     inlier counts.
+  - a masked frame: the flow mask adds about 27 (each of its 11 resizes
+    uploads two weight matrices from the host, and `eigh` and `inv`
+    check their results), the geometry mask 1 (`chip_smoke.py` phase
+    9c profiles a steady masked frame).
 Beyond these, every host scalar turned into a device tensor
 (`torch.tensor(x, device=...)`, `scatter` with a Python value) is a
 blocking copy, and `scatter`'s compaction of in-range indices waits for
@@ -64,20 +68,35 @@ def _eye4(device) -> torch.Tensor:
     return torch.eye(4, dtype=torch.float32, device=device)
 
 
-def build_frame(gray: torch.Tensor, depth_img: torch.Tensor, cfg: SlamConfig) -> Frame:
-    """ORB extraction + keypoint depth association."""
+def depth_metres(depth_img: torch.Tensor) -> torch.Tensor:
+    """float32 metres from uint16 millimetres; any other dtype is taken
+    as metres."""
+    if depth_img.dtype == torch.uint16:
+        return depth_img.to(torch.float32) * 1e-3
+    return depth_img.to(torch.float32)
+
+
+def build_frame(gray: torch.Tensor, depth_img: torch.Tensor, cfg: SlamConfig,
+                static_mask: torch.Tensor | None = None) -> Frame:
+    """ORB extraction + keypoint depth association; with a dynamic-pixel
+    mask, keypoints on dynamic pixels are dropped."""
     if gray.dtype != torch.float32:
         gray = gray.to(torch.float32)
-    return frame_from_features(extract(gray, cfg.orb), depth_img, cfg)
+    return frame_from_features(extract(gray, cfg.orb), depth_img, cfg, static_mask)
 
 
-def frame_from_features(feats: Features, depth_img: torch.Tensor, cfg: SlamConfig) -> Frame:
-    """Frame from already-extracted raw-pixel features: undistortion and
-    discontinuity-aware subpixel depth sampling."""
-    if depth_img.dtype == torch.uint16:
-        depth_img = depth_img.to(torch.float32) * 1e-3
-    elif depth_img.dtype != torch.float32:
-        depth_img = depth_img.to(torch.float32)
+def frame_from_features(feats: Features, depth_img: torch.Tensor, cfg: SlamConfig,
+                        static_mask: torch.Tensor | None = None) -> Frame:
+    """Frame from already-extracted raw-pixel features: the dynamic mask
+    (keypoints on pixels it marks dynamic are invalidated, unless less than
+    `min_static_area` of the image is static, Frame.cc:357-374),
+    undistortion and discontinuity-aware subpixel depth sampling."""
+    depth_img = depth_metres(depth_img)
+    if static_mask is not None:
+        mf = static_mask.to(torch.float32)
+        ms, _ = image_ops.nearest_sample(mf, feats.uv)
+        apply = mf.mean() >= cfg.dynamic.min_static_area
+        feats = dataclasses.replace(feats, valid=feats.valid & ((ms > 0.5) | ~apply))
     uv_ud = cam_ops.undistort_points(feats.uv, cfg.camera)
     feats = dataclasses.replace(
         feats, uv=torch.where(feats.valid[:, None], uv_ud, torch.zeros_like(uv_ud)))
@@ -340,15 +359,17 @@ def motion_velocity(T_cw, last_T_cw, status, cfg: SlamConfig) -> torch.Tensor:
 
 def fused_track_step(state: SlamState, gray, depth_img, last_frame: Frame, last_T_cw,
                      last_kp_point, velocity, frames_since_kf: int, ref_kf_inliers: int,
-                     cfg: SlamConfig, feats: Features | None = None):
-    """The per-frame hot path: frame build, motion-model tracking (with
+                     cfg: SlamConfig, feats: Features | None = None,
+                     static_mask: torch.Tensor | None = None):
+    """The per-frame hot path: frame build (dropping keypoints on the
+    pixels `static_mask` marks dynamic), motion-model tracking (with
     the reference-keyframe fallback), local-map tracking, pose selection,
     keyframe decision, velocity update. Returns (state, frame, T_cw,
     velocity, kp_point, packed) with packed = [T_cw flat (16), status,
     need_kf, n_inliers, n_matches, n_inl_mm] float32."""
     t = cfg.tracking
-    frame = (frame_from_features(feats, depth_img, cfg) if feats is not None
-             else build_frame(gray, depth_img, cfg))
+    frame = (frame_from_features(feats, depth_img, cfg, static_mask) if feats is not None
+             else build_frame(gray, depth_img, cfg, static_mask))
     T_pred = velocity @ last_T_cw
     T_mm, _, n_inl_mm = track_motion_model(
         frame, last_frame, last_T_cw, T_pred, cfg, map_pos=state.points.pos,
@@ -393,9 +414,6 @@ class Tracker:
     def __init__(self, cfg: SlamConfig, device=None):
         from orb_slam2_ssd_semantic_tpu_torch.utils.metrics import Metrics
 
-        if any(getattr(cfg.dynamic, f.name) for f in dataclasses.fields(cfg.dynamic)
-               if f.name.startswith("enable_")):
-            raise NotImplementedError("dynamic masks are not ported yet")
         self.device = device_mod.resolve(device)
         self.cfg = cfg
         self.metrics = Metrics()
@@ -405,6 +423,16 @@ class Tracker:
                                         device=self.device)
         self.last_T_cw = _eye4(self.device)
         self.velocity = _eye4(self.device)
+        # The dynamic masks' state: the previous gray image (flow mask) and
+        # the ring of keyframe views (geometry mask).
+        self.prev_gray = None
+        if cfg.dynamic.enable_geometry:
+            from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import empty_ref_views
+
+            self.geom_db = empty_ref_views(cfg.dynamic.geom_db_size, cfg.orb.max_keypoints,
+                                           self.device)
+        else:
+            self.geom_db = None
         self.initialized = False
         self.frame_id = 0
         # Loop closing and the keyframe database of relocalization. With
@@ -440,15 +468,38 @@ class Tracker:
                 feats: Features | None = None) -> np.ndarray:
         """Track one RGB-D frame (gray float32 [0, 255] or uint8; depth
         float32 meters or uint16 millimeters); returns T_cw (4, 4) numpy.
-        `feats`: optional pre-extracted raw-pixel features."""
+        `feats`: optional pre-extracted raw-pixel features.
+
+        The dynamic masks run first when enabled (the reference's
+        pre-tracking stage, Tracking.cc:688-719): the flow mask against the
+        previous gray image, from the second frame on, with an ego-motion
+        homography fitted to the flow; the geometry mask against the
+        recent keyframe views at the motion model's predicted pose, once
+        the tracker is initialized. Both together are ANDed."""
         cfg = self.cfg
         gray = self._to_device(gray)
         depth = self._to_device(depth)
+        static_mask = None
+        if cfg.dynamic.enable_flow and self.prev_gray is not None:
+            from orb_slam2_ssd_semantic_tpu_torch.dynamic.flowmask import (
+                flow_dynamic_mask_fitted,
+            )
+
+            with self.metrics.stage("mask.flow"):
+                static_mask = flow_dynamic_mask_fitted(self.prev_gray, gray, cfg.dynamic)
+        if cfg.dynamic.enable_geometry and self.initialized:
+            from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import geometry_dynamic_mask
+
+            with self.metrics.stage("mask.geometry"):
+                gmask = geometry_dynamic_mask(self.geom_db, self.velocity @ self.last_T_cw,
+                                              depth_metres(depth), cfg.camera, cfg.dynamic)
+            static_mask = gmask if static_mask is None else (static_mask & gmask)
+        self.prev_gray = gray
         if not self.initialized:
             if feats is not None:
-                frame = frame_from_features(feats, depth, cfg)
+                frame = frame_from_features(feats, depth, cfg, static_mask)
             else:
-                frame = build_frame(gray, depth, cfg)
+                frame = build_frame(gray, depth, cfg, static_mask)
             T_cw = _eye4(self.device)
             kp_point = torch.full((frame.feats.capacity,), -1, dtype=torch.int64, device=self.device)
             self.state, kp_point = insert_keyframe(self.state, frame, T_cw, kp_point,
@@ -466,7 +517,8 @@ class Tracker:
         with self.metrics.stage("track"):
             self.state, frame, T_cw, velocity, kp_point, packed = fused_track_step(
                 self.state, gray, depth, self.last_frame, self.last_T_cw, self.last_kp_point,
-                self.velocity, self.frames_since_kf, self.ref_kf_inliers, cfg, feats=feats)
+                self.velocity, self.frames_since_kf, self.ref_kf_inliers, cfg, feats=feats,
+                static_mask=static_mask)
             p = packed.cpu().numpy()  # the per-frame stats fetch
         T_np = p[:16].reshape(4, 4).astype(np.float32)
         status_code, need_kf = int(p[16]), bool(p[17] > 0.5)
@@ -484,6 +536,13 @@ class Tracker:
             self.metrics.count("keyframes")
             self.frames_since_kf = 0
             self.ref_kf_inliers = int((kp_point >= 0).sum())
+            if self.geom_db is not None:
+                # The geometry mask's view ring takes every keyframe
+                # (GeometricModelUpdateDB, Geometry.cc:73-79, 532-546).
+                from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import insert_ref_view
+
+                self.geom_db = insert_ref_view(self.geom_db, T_cw, frame.feats.uv, frame.kp_depth,
+                                               frame.feats.valid & frame.is_stereo)
             # Loop closing on the post-insert state, before local mapping;
             # a closed loop re-anchors the live pose on the corrected
             # keyframe.

@@ -41,6 +41,7 @@ from orb_slam2_ssd_semantic_tpu_torch.frontend.extractor import Features as TFea
 from orb_slam2_ssd_semantic_tpu_torch.ops import image as tim
 from orb_slam2_ssd_semantic_tpu_torch.tracking import tracker as ttk
 from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 DATA = Path(__file__).resolve().parent / "frame19_7c.npz"
 ULPS = 4

@@ -24,6 +24,7 @@ from orb_slam2_ssd_semantic_tpu.io.synthetic import SyntheticSequence
 from orb_slam2_ssd_semantic_tpu_torch.config import OrbConfig as TOrb
 from orb_slam2_ssd_semantic_tpu_torch.frontend.extractor import extract as t_extract
 from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 SMALL_CAM = JCam(fx=267.7, fy=269.6, cx=160.0, cy=123.8, width=320, height=240, th_depth=80.0)
 

@@ -28,6 +28,7 @@ from orb_slam2_ssd_semantic_tpu_torch.geometry import se3 as tse3
 from orb_slam2_ssd_semantic_tpu_torch.ops import linalg as tla
 from orb_slam2_ssd_semantic_tpu_torch.tracking.pose_opt import pose_optimize as t_pose_optimize
 from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

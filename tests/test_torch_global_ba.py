@@ -31,19 +31,10 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping import pose_graph as tpg
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import state_from_numpy, state_to_numpy
 from test_global_ba import build_problem
 from test_pose_graph_chain import _chain_graph, _circle_poses
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 INDEX = ("obs_kf", "obs_pt", "edge_i", "edge_j")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    """Many tiny ops: extra intra-op threads only contend with the other
-    test workers."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _tensors(nt) -> dict:

@@ -57,17 +57,10 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import state_from_numpy
 from orb_slam2_ssd_semantic_tpu_torch.tracking import tracker as ttk
 from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import nanmedian
 from test_loop_e2e import _circle_poses
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 N_KF, DRIFT = 18, 0.30
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 def e2e_config(mod, run_global_ba=False):

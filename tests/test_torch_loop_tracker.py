@@ -26,20 +26,13 @@ from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import SyntheticSequence
 from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
 from test_loop_e2e import _circle_poses
 from test_torch_loop import N_KF, e2e_config, render_all, run_port
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 N_FRAMES = 12
 # The re-anchor test: the stub closes a "loop" at the keyframe of this uid
 # (the third keyframe, frame 6 at a keyframe every third frame), moving it
 # by 1 cm and 0.5 degrees.
 CLOSE_AT_UID = 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 def test_no_false_loops_without_revisit():

@@ -36,6 +36,7 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping import local_mapping as tlm
 from orb_slam2_ssd_semantic_tpu_torch.mapping import triangulation as ttri
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import state_from_numpy, state_to_numpy
 from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

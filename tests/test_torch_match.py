@@ -12,6 +12,7 @@ from orb_slam2_ssd_semantic_tpu.ops import match as jm
 from orb_slam2_ssd_semantic_tpu.ops.pallas_match import fused_window_match
 from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_match
 from orb_slam2_ssd_semantic_tpu_torch.ops import match as tm
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 
 def _problem(seed, q=256, t=128):

@@ -1,8 +1,9 @@
 """Package rules of the PyTorch port: it loads neither JAX, Triton nor the
 JAX package; its entry points (the Tracker and the whole-sequence scan
-and segmented runner) run on the card unless asked for the CPU; unported
-subsystems (dynamic masks) are refused rather than skipped, and loop
-closing and relocalization, together or alone, are accepted."""
+and segmented runner) run on the card unless asked for the CPU; the
+dynamic masks (the Tracker's `dynamic.enable_*`, the scan's and the
+segmented runner's `use_flow` and `use_geom`), loop closing and
+relocalization, together or alone, are accepted."""
 
 import os
 import pathlib
@@ -10,10 +11,12 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from orb_slam2_ssd_semantic_tpu_torch.config import DynamicConfig, LoopConfig, SlamConfig
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "orb_slam2_ssd_semantic_tpu_torch"
@@ -60,6 +63,8 @@ def test_tracker_defaults_to_the_card():
 def test_scan_entries_default_to_the_card():
     import numpy as np
 
+    from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig
+    from orb_slam2_ssd_semantic_tpu_torch.io.device_render import render_frames
     from orb_slam2_ssd_semantic_tpu_torch.tracking.scan_tracker import track_sequence
     from orb_slam2_ssd_semantic_tpu_torch.tracking.segmented import track_sequence_segmented
 
@@ -70,24 +75,49 @@ def test_scan_entries_default_to_the_card():
         track_sequence(g, d, SlamConfig(loop=NO_LOOP))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         track_sequence_segmented(g, d, SlamConfig(loop=NO_LOOP), segment_len=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_frames(np.eye(4, dtype=np.float32)[None], CameraConfig(width=8, height=8))
+
+
+def _small_frames(n=3, h=120, w=160):
+    """n copies of one smooth random texture (a still camera) and a flat
+    depth of 2 m, as uint8 and uint16 mm."""
+    import numpy as np
+    from scipy.ndimage import gaussian_filter
+
+    tex = gaussian_filter(np.random.default_rng(0).random((h, w)), 1.5)
+    tex = (tex - tex.min()) / (tex.max() - tex.min()) * 255.0
+    return (np.repeat(tex.astype(np.uint8)[None], n, 0),
+            np.full((n, h, w), 2000, np.uint16))
+
+
+def _small_config(**dynamic):
+    from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig, OrbConfig
+
+    return SlamConfig(loop=NO_LOOP, dynamic=DynamicConfig(**dynamic),
+                      camera=CameraConfig(fx=134.0, fy=134.0, cx=80.0, cy=60.0, width=160,
+                                          height=120),
+                      orb=OrbConfig(n_features=100, max_keypoints=128))
 
 
 @pytest.mark.parametrize("mask", ["use_flow", "use_geom"])
 def test_scan_entries_refuse_unported_masks(mask):
-    import numpy as np
-
+    """The masks are ported: the scan and the segmented runner take
+    `use_flow` and `use_geom` (the name is kept from when they raised)."""
+    from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import empty_state
     from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker
     from orb_slam2_ssd_semantic_tpu_torch.tracking.segmented import track_sequence_segmented
 
-    cfg = SlamConfig(loop=NO_LOOP)
-    g, d = np.zeros((3, 8, 8), np.uint8), np.zeros((3, 8, 8), np.uint16)
-    with pytest.raises(NotImplementedError):
-        scan_tracker.track_sequence_scan(None, None, None, cfg, **{mask: True})
-    with pytest.raises(NotImplementedError):
-        track_sequence_segmented(g, d, cfg, segment_len=1, device="cpu", **{mask: True})
-    if mask == "use_geom":
-        with pytest.raises(NotImplementedError):
-            scan_tracker.init_scan(None, None, None, cfg, use_geom=True)
+    cfg = _small_config()
+    g, d = _small_frames()
+    res = track_sequence_segmented(g, d, cfg, segment_len=1, device="cpu", **{mask: True})
+    assert res.T_all.shape == (3, 4, 4) and np.isfinite(res.T_all).all()
+    gt, dt = torch.from_numpy(g), torch.from_numpy(d)
+    c0 = scan_tracker.init_scan(empty_state(cfg, torch.device("cpu")), gt[0], dt[0], cfg,
+                                use_geom=mask == "use_geom")
+    assert (c0.geom_db is not None) == (mask == "use_geom")
+    _, T, stats = scan_tracker.track_sequence_scan(c0, gt[1:], dt[1:], cfg, **{mask: True})
+    assert T.shape == (2, 4, 4) and stats.shape == (2, 4)
 
 
 @pytest.mark.parametrize("cfg", [
@@ -95,10 +125,21 @@ def test_scan_entries_refuse_unported_masks(mask):
     SlamConfig(loop=NO_LOOP, dynamic=DynamicConfig(enable_geometry=True)),
 ], ids=["flow", "geometry"])
 def test_tracker_refuses_unported_subsystems(cfg):
+    """The masks are ported: the Tracker takes each `dynamic.enable_*`
+    (the name is kept from when it raised) and runs the mask's stage from
+    the second frame on."""
     from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
 
-    with pytest.raises(NotImplementedError):
-        Tracker(cfg, device="cpu")
+    small = _small_config(enable_flow=cfg.dynamic.enable_flow,
+                          enable_geometry=cfg.dynamic.enable_geometry)
+    tr = Tracker(small, device="cpu")
+    assert tr.prev_gray is None
+    assert (tr.geom_db is not None) == cfg.dynamic.enable_geometry
+    g, d = _small_frames()
+    for i in range(3):
+        tr.process(g[i], d[i], float(i))
+    stage = "mask.flow" if cfg.dynamic.enable_flow else "mask.geometry"
+    assert tr.metrics.stages[stage].count == 2
 
 
 @pytest.mark.parametrize("cfg", [

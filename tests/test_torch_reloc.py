@@ -41,6 +41,7 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.loop_closing import LoopCloser
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import state_from_numpy
 from orb_slam2_ssd_semantic_tpu_torch.tracking import tracker as ttk
 from orb_slam2_ssd_semantic_tpu_torch.tracking.reloc import relocalize as t_relocalize
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 N_TRACK = 10  # frames tracked before relocalizing

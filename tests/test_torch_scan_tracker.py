@@ -24,7 +24,14 @@ Gates, and why:
   orders: 1 ulp on some rows);
 - a segment run twice from one carry, and `LoopCloser._correct` on a
   state, leave their inputs bit-equal (the segmented runner reads the
-  pre-correction carry after `_correct` has returned).
+  pre-correction carry after `_correct` has returned);
+- the scan with `use_flow`, and with `use_geom`, on 7 frames of the
+  dynamic scene (two moving boxes) against `Tracker.process` with the
+  same mask: the same masks feed the same `fused_track_step`, so poses,
+  statuses and keyframes are equal bit for bit. The scan's view ring
+  starts with frame 0 (`init_scan`, as in JAX) and the Tracker's with
+  its first keyframe after frame 0 (as in JAX), so the test hands the
+  Tracker frame 0's view before frame 1.
 """
 
 import dataclasses
@@ -42,6 +49,7 @@ from orb_slam2_ssd_semantic_tpu.io import vocabulary as jvoc
 from orb_slam2_ssd_semantic_tpu.io.artifacts import find_checkpoint
 from orb_slam2_ssd_semantic_tpu.mapping.map_state import empty_state as j_empty_state
 from orb_slam2_ssd_semantic_tpu.tracking import scan_tracker as jst
+from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import insert_ref_view
 from orb_slam2_ssd_semantic_tpu_torch.eval.ate import evaluate_ate_xyz
 from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import SyntheticSequence
 from orb_slam2_ssd_semantic_tpu_torch.mapping.loop_closing import LoopCloser
@@ -50,18 +58,11 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import state_from_numpy
 from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker as tst
 from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
 from test_torch_tracker import small_config
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 N_FRAMES = 13
 SCORE_ATOL = 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _render(i):
@@ -316,3 +317,57 @@ def test_correct_leaves_its_input_state_unchanged(runs):
     assert_unchanged(state, before)
     if accepted:
         assert not torch.equal(out.kfs.T_cw, state.kfs.T_cw)
+
+
+# ---- the dynamic masks in the scan ------------------------------------------
+
+N_DYN = 7
+
+
+@pytest.fixture(scope="module")
+def dynamic_frames():
+    cfg = small_config(tconfig)
+    seq = SyntheticSequence(n_frames=N_DYN, dynamic_objects=True, n_dynamic=2, cam=cfg.camera)
+    frames = [seq.gray_depth(i) for i in range(N_DYN)]
+    return np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+
+
+@pytest.mark.parametrize("mask,depth_unit", [
+    pytest.param("use_flow", "m", id="use_flow"),
+    pytest.param("use_geom", "m", id="use_geom"),
+    pytest.param("use_geom", "mm", id="use_geom-uint16"),
+])
+def test_scan_with_mask_equals_tracker_process(dynamic_frames, mask, depth_unit):
+    """The scan with a mask against `Tracker.process`, bit for bit; with
+    uint16 mm depths both hand the geometry mask metres."""
+    g, d = dynamic_frames
+    if depth_unit == "mm":
+        d = np.round(d * 1000).astype(np.uint16)
+    base = small_config(tconfig)
+    cfg = dataclasses.replace(base, dynamic=dataclasses.replace(
+        base.dynamic, enable_flow=mask == "use_flow", enable_geometry=mask == "use_geom"))
+    tracker = Tracker(cfg, device=CPU)
+    process_T = [tracker.process(g[0], d[0], 0.0)]
+    if mask == "use_geom":
+        f0 = tracker.last_frame
+        tracker.geom_db = insert_ref_view(tracker.geom_db, tracker.last_T_cw, f0.feats.uv,
+                                          f0.kp_depth, f0.feats.valid & f0.is_stereo)
+    process_T += [tracker.process(g[i], d[i], float(i)) for i in range(1, N_DYN)]
+
+    gt_, dt_ = torch.from_numpy(g), torch.from_numpy(d)
+    c0 = tst.init_scan(t_empty_state(cfg, CPU), gt_[0], dt_[0], cfg, use_geom=mask == "use_geom")
+    kw = {mask: True}
+    if mask == "use_flow":
+        kw["prev_grays"] = gt_[:-1]
+    c, T, stats = tst.track_sequence_scan(c0, gt_[1:], dt_[1:], cfg, **kw)
+    stage = "mask.flow" if mask == "use_flow" else "mask.geometry"
+    assert tracker.metrics.stages[stage].count == N_DYN - 1
+    assert [("OK", "WEAK", "LOST")[s] for s in stats[:, 0]] == [s["status"]
+                                                               for s in tracker.stats[1:]]
+    assert stats[:, 2].tolist() == [s["kfs"] for s in tracker.stats[1:]]
+    assert int(stats[-1, 2]) >= 3
+    np.testing.assert_array_equal(T.numpy(), np.stack(process_T[1:]))
+    if mask == "use_geom":
+        assert int(c.geom_db.cursor) == int(tracker.geom_db.cursor) >= 2
+        assert torch.equal(c.geom_db.T_cw, tracker.geom_db.T_cw)
+        assert c0.geom_db is not c.geom_db and int(c0.geom_db.cursor) == 1

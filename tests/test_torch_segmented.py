@@ -40,6 +40,7 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping import loop_closing as tlc
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import empty_state as t_empty_state
 from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker as tst
 from orb_slam2_ssd_semantic_tpu_torch.tracking import segmented as tseg
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 S, N_SEG, F = 4, 3, 16
@@ -301,3 +302,55 @@ def test_resolve_trajectory_matches_jax():
     want = jseg.resolve_trajectory(jseg.SegmentedResult(jcarry, *rest))
     assert got.shape == (len(traj), 3)
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("use_flow,use_geom", [(True, False), (False, True), (True, True)],
+                         ids=["flow", "geom", "both"])
+def test_runner_hands_the_masks_to_every_segment(use_flow, use_geom, monkeypatch):
+    """`init_scan` gets `use_geom`; every segment's scan gets `use_flow`,
+    `use_geom` and, with the flow mask, `prev_grays = g[lo-1:hi-1]`, the
+    frames before its own (JAX `segmented.py:183`). No loop event here,
+    and each segment continues the carry the last one left."""
+    cfg = config(tconfig)
+    seen = {"scans": []}
+
+    def init_scan(state, g0, d0, cfg, **kw):
+        seen["init"] = kw
+        return tst.ScanCarry(state=state, last_frame=None, last_T_cw=torch.eye(4),
+                             last_kp_point=None, velocity=None, frames_since_kf=0,
+                             ref_kf_inliers=0, frame_idx=1, word_db=None, val_db=None,
+                             cons_count=torch.zeros((F,), dtype=torch.int32), geom_db="ring 0")
+
+    def scan(carry, grays, depths, cfg, with_rel=False, **kw):
+        s = (int(grays[0, 0, 0]) - 1) // S
+        seen["scans"].append((s, carry.geom_db, kw))
+        sc = segment_script(s)
+        stats = sc["stats"].copy()
+        stats[:, 3] = -1
+        st = t_empty_state(cfg, CPU)
+        st = st.replace(kfs=st.kfs.replace(
+            uid=torch.from_numpy(sc["uid"]), valid=torch.from_numpy(sc["valid"]),
+            frame_id=torch.from_numpy(sc["fid"]), T_cw=torch.from_numpy(sc["T_kf"])),
+            last_kf=torch.tensor(sc["last_kf"]))
+        out = carry.replace(state=st, geom_db=f"ring {s + 1}")
+        return (out, torch.from_numpy(sc["T_seg"]), torch.from_numpy(stats).to(torch.int64),
+                torch.from_numpy(sc["T_rel"]), torch.from_numpy(sc["ref_uid"]))
+
+    monkeypatch.setattr(tst, "init_scan", init_scan)
+    monkeypatch.setattr(tst, "track_sequence_scan", scan)
+    g = torch.arange(N, dtype=torch.uint8).reshape(N, 1, 1)
+    res = tseg.track_sequence_segmented(g, g.to(torch.int32), cfg, segment_len=S,
+                                        loop_closer=TStub(cfg, "agree"), device=CPU,
+                                        use_flow=use_flow, use_geom=use_geom)
+    assert seen["init"]["use_geom"] is use_geom
+    assert [s for s, _, _ in seen["scans"]] == list(range(N_SEG))
+    for s, ring, kw in seen["scans"]:
+        lo = 1 + s * S
+        assert ring == f"ring {s}"
+        assert kw["use_flow"] is use_flow and kw["use_geom"] is use_geom
+        if use_flow:
+            assert torch.equal(kw["prev_grays"], g[lo - 1:lo - 1 + S])
+            assert int(kw["prev_grays"][0, 0, 0]) == lo - 1
+        else:
+            assert kw["prev_grays"] is None
+    assert res.n_loop_events == 0 and not res.corrections

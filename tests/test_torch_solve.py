@@ -11,6 +11,7 @@ import torch
 from orb_slam2_ssd_semantic_tpu.ops.pallas_solve import spd_solve as jax_spd_solve
 from orb_slam2_ssd_semantic_tpu_torch.mapping import ba
 from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_solve
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 
 def _spd(rng, n, damp=1e-3):

@@ -18,6 +18,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import orb_slam2_ssd_semantic_tpu.config as jconfig
 import orb_slam2_ssd_semantic_tpu_torch.config as tconfig
@@ -25,6 +26,7 @@ from orb_slam2_ssd_semantic_tpu.io.synthetic import SyntheticSequence
 from orb_slam2_ssd_semantic_tpu.tracking.tracker import Tracker as JTracker
 from orb_slam2_ssd_semantic_tpu_torch.eval.ate import evaluate_ate_xyz
 from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker as TTracker
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 N_FRAMES = 10
 

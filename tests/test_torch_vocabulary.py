@@ -28,6 +28,7 @@ from orb_slam2_ssd_semantic_tpu_torch.io import vocabulary as tvoc
 from orb_slam2_ssd_semantic_tpu_torch.mapping import loop_closing as tlc
 from orb_slam2_ssd_semantic_tpu_torch.mapping import place_recognition as tpr
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import state_from_numpy
+from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 TRAINED = os.path.join(os.path.dirname(__file__), "..", "checkpoints", "orbvoc_synth.npz")
