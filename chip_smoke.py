@@ -119,7 +119,34 @@ Phases (any failure exits non-zero; nothing is caught):
         frame LOST, the masked runs' resolved ATE under 0.15 m
         (`bench.py`'s gate), geometry <= unmasked; the unmasked run's ATE
         is logged, not gated;
- 10. one JSON line of per-kernel numbers, the card's name and power limit,
+ 10. semantics (counts zeroed before, read after; B1's launches here are
+     `launches_semantic`), with the seeded full-width SSDLite
+     (`init_ssdlite(21, seed=0)`, made on the CPU and passed explicitly: a
+     missing-artifact warning is an error) on the default orbit's room
+     with three boxes flat at `bench.py`'s class gray levels, rendered on
+     the card at 640x480 by `io/device_render.py`:
+     a. the network on one frame on the card against the port on the CPU
+        (f32, TF32 off): loc and conf within 1e-3 of each output's largest
+        magnitude; the bf16 batch of 8 against the card's f32 within 0.05;
+        each path's ms a call (median of 20, ending in a synchronize);
+     b. the card's decode, top-k and NMS on the CPU's raw outputs: boxes
+        within 1e-3 px, scores within 1e-6, classes and valid flags equal;
+     c. both fusion schemes and `add_objects` on one detection per planted
+        box seen (its face's projected bbox, the class of its gray level,
+        score 0.9) at 5 views, on the card and a CPU copy: databases
+        within 1e-4 m, `segment_objects` labels equal on every pixel;
+        every box seen within 0.10 m of a depth-window object (0.4 m for
+        MergeSG, `tests/test_semantic.py`'s margin);
+     d. `SlamSystem(enable_semantics=True).track_rgbd` on 48 frames
+        against `Tracker.process` on the same frames: every frame OK,
+        poses and keyframes equal, ATE within phase 4's 0.01 m, one
+        detector call per keyframe and the queue empty after each frame;
+        a second system with the score gates at 0: its object database
+        against the port's consumers on the CPU replaying its keyframe
+        payloads (count, classes, centroids within 1e-4 m); ms a frame with
+        and without semantics, each consumer's ms, a flush's launches and
+        syncs under the profiler;
+ 11. one JSON line of per-kernel numbers, the card's name and power limit,
      and the result line last.
 
 Without a CUDA card it exits non-zero and prints no result.
@@ -151,7 +178,12 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig, DynamicConfig, SlamConfig
+from orb_slam2_ssd_semantic_tpu_torch.config import (
+    CameraConfig,
+    DynamicConfig,
+    SemanticConfig,
+    SlamConfig,
+)
 from orb_slam2_ssd_semantic_tpu_torch.dynamic.flowmask import (
     downscaled_flow,
     flow_dynamic_mask_fitted,
@@ -168,7 +200,9 @@ from orb_slam2_ssd_semantic_tpu_torch.io import vocabulary as voc
 from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import (
     BoxRoom,
     SyntheticSequence,
+    _default_boxes,
     cross_walkers,
+    orbit_trajectory,
 )
 from orb_slam2_ssd_semantic_tpu_torch.mapping import map_state
 from orb_slam2_ssd_semantic_tpu_torch.mapping.global_ba import global_ba_step_state
@@ -194,7 +228,18 @@ from orb_slam2_ssd_semantic_tpu_torch.tracking.segmented import (
     resolve_trajectory,
     track_sequence_segmented,
 )
-from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker, build_frame, insert_keyframe
+from orb_slam2_ssd_semantic_tpu_torch.semantic.consume import gt_box_localization
+from orb_slam2_ssd_semantic_tpu_torch.semantic.detector import Detections, Detector
+from orb_slam2_ssd_semantic_tpu_torch.semantic.fusion import fuse_detections, segment_objects
+from orb_slam2_ssd_semantic_tpu_torch.semantic.object_db import add_objects, empty_db
+from orb_slam2_ssd_semantic_tpu_torch.semantic.ssdlite import init_ssdlite
+from orb_slam2_ssd_semantic_tpu_torch.system import SlamSystem
+from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import (
+    Tracker,
+    build_frame,
+    depth_metres,
+    insert_keyframe,
+)
 from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
@@ -322,6 +367,34 @@ MASK_PIXEL_TOL = 0.005
 DYN_FRAMES, DYN_KF_GAP = 20, 4
 DYN_PROFILE_FRAMES = range(12, 14)
 WALK_ATE_GATE = 0.15
+# Phase 10 (semantics). The scene: the default orbit's room and seed,
+# with `bench.py`'s SEM_FLAT_BOXES gray levels of classes 2, 1 and 3 on
+# three boxes of this room that the orbit sees (the bench's indices name
+# boxes of the loop room). Box 2 stays textured: flat as well, it took
+# the tracked ATE over 48 frames from 1.7 to 8.5 mm in a CPU rehearsal.
+# 10a: the card's f32 forward against the CPU's within 1e-3 of each
+# output's largest magnitude; the bf16 batch against the card's f32
+# within 0.05 of it (bf16 keeps 8 bits over ~70 layers: the CPU measured
+# 0.015 and 0.018 on the seeded weights; the CPU test of the trained
+# detections holds 3 px and 0.05 in score). 10b: the decode on the same
+# raw outputs, boxes within 1e-3 px and scores within 1e-6. 10c: the
+# planted boxes' detections at SEM_VIEWS, databases within 1e-4 m of the
+# CPU's; every box seen within 0.10 m of a depth-window object, and within
+# `tests/test_semantic.py`'s 0.4 m of a MergeSG object: MergeSG removes a
+# box's front face with the planes (the face alone fills a plane bin), and
+# the clusters left beside it lay boxes 0 and 1 0.23 and 0.28 m away in
+# the port's CPU rehearsal at 640x480 (the port equals JAX's MergeSG on
+# the CPU). 10d: 48 frames, phase 4's ATE gate, the database within
+# 1e-4 m of the CPU's replay.
+SEM_FRAMES, SEM_ROOM, SEM_SEED = 48, (5.0, 3.0, 6.0), 17
+SEM_FLAT_BOXES = {0: 161.5, 1: 93.5, 4: 229.5}
+SEM_VIEWS = (0, 12, 24, 36, 47)
+SEM_SEEN_FRACTION, SEM_SEEN_PX = 0.25, 40
+SEM_BATCH, SEM_TIMED_CALLS = 8, 20
+SEM_NET_TOL, SEM_BF16_TOL = 1e-3, 0.05
+SEM_BOX_TOL, SEM_SCORE_TOL = 1e-3, 1e-6
+SEM_CENTROID_TOL, SEM_ATE_GATE = 1e-4, 0.01
+SEM_GT_TOL = {"depth_window": 0.10, "merge_sg": 0.4}
 
 
 def _log(msg: str) -> None:
@@ -1980,6 +2053,361 @@ def run_dynamic_path(dev, card: str, cam: CameraConfig | None = None,
                 launches=counts)
 
 
+# ---- phase 10: semantics through SlamSystem ----------------------------------
+
+class _CountingDetector:
+    """Stands in for `SlamSystem.detector`: forwards both detection paths
+    and counts the images each one took."""
+
+    def __init__(self, det):
+        self.det, self.calls, self.batched = det, 0, 0
+
+    def __call__(self, rgb):
+        self.calls += 1
+        return self.det(rgb)
+
+    def detect_batch(self, rgbs):
+        self.batched += len(rgbs)
+        return self.det.detect_batch(rgbs)
+
+
+class _RecordingSystem(SlamSystem):
+    """`SlamSystem` that keeps each keyframe payload its consumers got."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.payloads = []
+
+    def _on_new_keyframe(self, rgb, depth, T_cw):
+        self.payloads.append((np.array(rgb), np.array(depth), np.array(T_cw, np.float32)))
+        super()._on_new_keyframe(rgb, depth, T_cw)
+
+
+def semantic_scene(dev, cam: CameraConfig, n_frames: int = SEM_FRAMES) -> dict:
+    """Phase 10's scene: the default orbit's first `n_frames` poses in its
+    room, the boxes of SEM_FLAT_BOXES flat at their gray levels, rendered
+    on `dev`; the planted boxes' world AABBs and classes."""
+    poses = orbit_trajectory(n_frames, room=SEM_ROOM).astype(np.float32)
+    gray = [-1.0] * len(_default_boxes(SEM_ROOM))
+    for i, level in SEM_FLAT_BOXES.items():
+        gray[i] = level
+    (g, d), render_ms = _timed(lambda: device_render.render_frames(
+        poses, cam, size=SEM_ROOM, seed=SEM_SEED, box_gray=tuple(gray), device=dev), dev)
+    boxes = [np.asarray(_default_boxes(SEM_ROOM)[i], np.float32) for i in SEM_FLAT_BOXES]
+    # The class of a gray band (bench.py, SEM_FLAT_BOXES): class c of 3
+    # renders at 127.5 * (1 + (-0.8 + 1.6 * c / 3)).
+    classes = [int(round((level / 127.5 - 0.2) * 3 / 1.6)) for level in SEM_FLAT_BOXES.values()]
+    return dict(poses=poses, grays=g, depths=d, gray_host=g.cpu().numpy(),
+                depth_host=d.cpu().numpy(), gt_boxes=np.stack(boxes), classes=classes,
+                render_ms_per_frame=render_ms / n_frames)
+
+
+def _rgb(gray: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) gray -> (..., H, W, 3), as the system's consumers see it."""
+    return gray[..., None].expand(*gray.shape, 3).contiguous()
+
+
+def _sync_ms(fn, dev, calls: int = SEM_TIMED_CALLS) -> float:
+    """Median host time of `calls` calls, each ending in a synchronize,
+    after one call to warm up."""
+    fn()
+    return statistics.median(_timed(fn, dev)[1] for _ in range(calls))
+
+
+def _rel_gap(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((a.cpu() - ref.cpu()).abs().max() / ref.abs().max().cpu())
+
+
+def check_semantic_network(dev, scene: dict, params: dict, card: str) -> dict:
+    """10a: the full-width SSDLite on the card against the port on the CPU
+    (same weights, f32, TF32 off), the bf16 batch against the card's own
+    f32, each path's time; 10b: the card's decode, top-k and NMS on the
+    CPU's raw outputs against the CPU's."""
+    cpu = torch.device("cpu")
+    cfg = SemanticConfig(det_score_threshold=0.0)  # every kept box is valid: 10b sees NMS
+    det = Detector(cfg, params=params, device=dev)
+    det_cpu = Detector(cfg, params=params, device=cpu)
+    rgb = _rgb(scene["grays"][0])
+    loc, conf = det.raw(rgb)
+    loc_c, conf_c = det_cpu.raw(rgb.cpu())
+    out = dict(f32_loc_gap=_rel_gap(loc, loc_c), f32_conf_gap=_rel_gap(conf, conf_c),
+               largest_loc=float(loc_c.abs().max()), largest_conf=float(conf_c.abs().max()))
+    batch = _rgb(scene["grays"][:SEM_BATCH])
+    l32, c32 = det.raw(batch)
+    l16, c16 = det.raw(batch, bf16=True)
+    out.update(bf16_loc_gap=_rel_gap(l16, l32), bf16_conf_gap=_rel_gap(c16, c32))
+    frames = [batch[i] for i in range(SEM_BATCH)]
+    out.update(f32_forward_ms=_sync_ms(lambda: det.raw(rgb), dev),
+               bf16_forward_ms_batch=_sync_ms(lambda: det.raw(batch, bf16=True), dev),
+               f32_detect_ms=_sync_ms(lambda: det(rgb), dev),
+               bf16_detect_ms_batch=_sync_ms(lambda: det.detect_batch(frames), dev),
+               batch=SEM_BATCH)
+    # 10b: the CPU's raw outputs through the card's post-processing.
+    h, w = rgb.shape[:2]
+    want = det_cpu.postprocess(loc_c, conf_c, h, w)
+    got = det.postprocess(loc_c.to(dev), conf_c.to(dev), h, w)
+    out.update(decode_box_gap_px=float((got.boxes.cpu() - want.boxes).abs().max()),
+               decode_score_gap=float((got.scores.cpu() - want.scores).abs().max()),
+               decode_classes_equal=bool(torch.equal(got.classes.cpu(), want.classes)),
+               decode_valid_equal=bool(torch.equal(got.valid.cpu(), want.valid)),
+               decode_kept=int(want.valid.sum()),
+               decode_ms=_sync_ms(lambda: det.postprocess(loc, conf, h, w), dev))
+    _log("10a/10b network and decode: " + json.dumps(out) + f"; limits: f32 {SEM_NET_TOL}, bf16 "
+         f"{SEM_BF16_TOL} of the largest magnitude, boxes {SEM_BOX_TOL} px, scores "
+         f"{SEM_SCORE_TOL}; card: {card}")
+    for k in ("f32_loc_gap", "f32_conf_gap"):
+        if not out[k] <= SEM_NET_TOL:
+            raise AssertionError(f"10a: {k} {out[k]:.3e} > {SEM_NET_TOL}")
+    for k in ("bf16_loc_gap", "bf16_conf_gap"):
+        if not out[k] <= SEM_BF16_TOL:
+            raise AssertionError(f"10a: {k} {out[k]:.3e} > {SEM_BF16_TOL}")
+    if not (out["decode_box_gap_px"] <= SEM_BOX_TOL and out["decode_score_gap"] <= SEM_SCORE_TOL
+            and out["decode_classes_equal"] and out["decode_valid_equal"]):
+        raise AssertionError(f"10b: the card's decode differs from the CPU's: {out}")
+    if not 0 < out["decode_kept"] < cfg.max_detections:
+        raise AssertionError(f"10b: NMS kept {out['decode_kept']} boxes: vacuous")
+    return out
+
+
+def _seen(box: np.ndarray, T_cw: np.ndarray, cam: CameraConfig):
+    """The pixel bbox, clipped to the image, of a box's face toward the
+    orbit's camera (its -z face: the boxes stand on the +z wall), or None
+    unless the face lies in front of the camera and at least
+    SEM_SEEN_FRACTION of its bbox, and SEM_SEEN_PX pixels each way, fall
+    inside the image."""
+    lo, hi = box
+    corners = np.array([[x, y, lo[2]] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])],
+                       np.float32)
+    pc = corners @ T_cw[:3, :3].T + T_cw[:3, 3]
+    if not (pc[:, 2] > 0.1).all():
+        return None
+    u = cam.fx * pc[:, 0] / pc[:, 2] + cam.cx
+    v = cam.fy * pc[:, 1] / pc[:, 2] + cam.cy
+    b = np.array([u.min(), v.min(), u.max(), v.max()], np.float32)
+    c = np.clip(b, 0, [cam.width - 1, cam.height - 1, cam.width - 1, cam.height - 1])
+    cw, ch = c[2] - c[0], c[3] - c[1]
+    if min(cw, ch) < SEM_SEEN_PX * cam.width / 640 \
+            or cw * ch < SEM_SEEN_FRACTION * (b[2] - b[0]) * (b[3] - b[1]):
+        return None
+    return c
+
+
+def planted_detections(scene: dict, i: int, cam: CameraConfig, D: int):
+    """One detection per planted box view `i` sees: its projected bbox, the
+    class of its gray level, score 0.9; the rest of the D rows invalid.
+    Returns (Detections of numpy arrays, indices of the boxes seen)."""
+    T_cw = np.linalg.inv(scene["poses"][i]).astype(np.float32)
+    boxes = np.zeros((D, 4), np.float32)
+    scores = np.zeros(D, np.float32)
+    classes = np.zeros(D, np.int32)
+    valid = np.zeros(D, bool)
+    seen = []
+    for k, (box, c) in enumerate(zip(scene["gt_boxes"], scene["classes"])):
+        b = _seen(box, T_cw, cam)
+        if b is not None:
+            j = len(seen)
+            boxes[j], scores[j], classes[j], valid[j] = b, 0.9, c, True
+            seen.append(k)
+    return Detections(boxes, scores, classes, valid), seen, T_cw
+
+
+def check_semantic_fusion(dev, scene: dict, cam: CameraConfig, card: str) -> dict:
+    """10c: both fusion schemes and `add_objects` on the planted boxes'
+    detections at SEM_VIEWS, on the card and on a CPU copy: centroids and
+    labels against the CPU, the databases against the ground truth."""
+    cpu = torch.device("cpu")
+    out, seen_any = {}, set()
+    with highest_precision():
+        for scheme in ("depth_window", "merge_sg"):
+            scfg = SemanticConfig(fusion_scheme=scheme)
+            db = {dv.type: empty_db(scfg.max_objects, dv) for dv in (dev, cpu)}
+            label_diff = 0
+            for i in SEM_VIEWS:
+                det_np, seen, T_cw = planted_detections(scene, i, cam, scfg.max_detections)
+                seen_any.update(seen)
+                depth = scene["depths"][i].to(torch.float32) * 1e-3
+                for dv in (dev, cpu):
+                    det = Detections(*(torch.from_numpy(np.asarray(a)).to(dv) for a in det_np))
+                    res = fuse_detections(det, depth.to(dv), torch.from_numpy(T_cw).to(dv), cam,
+                                          scfg)
+                    db[dv.type] = add_objects(db[dv.type], *res)
+                if scheme == "merge_sg":
+                    lab = segment_objects(depth, cam, scfg).cpu()
+                    lab_c = segment_objects(depth.cpu(), cam, scfg)
+                    label_diff += int((lab != lab_c).sum())
+            card_db, cpu_db = db[dev.type], db["cpu"]
+            v = card_db.valid.cpu()
+            r = dict(objects=int(v.sum()), objects_cpu=int(cpu_db.valid.sum()),
+                     same_classes=bool(torch.equal(card_db.class_id.cpu(), cpu_db.class_id)),
+                     centroid_gap_m=float((card_db.centroid.cpu() - cpu_db.centroid)[v].abs().max())
+                     if v.any() else 0.0)
+            if scheme == "merge_sg":
+                r["label_pixels_differing"] = label_diff
+            per_gt, n_spur = gt_box_localization(card_db, scene["gt_boxes"][sorted(seen_any)])
+            r.update(per_box_error_m=per_gt.tolist(), spurious=n_spur)
+            out[scheme] = r
+    _log("10c fusion on the planted boxes (card against CPU, database against the ground "
+         f"truth): {json.dumps(out)}; boxes seen {sorted(seen_any)} of {len(scene['classes'])}; "
+         f"limits {SEM_CENTROID_TOL} m, {json.dumps(SEM_GT_TOL)} m; card: {card}")
+    for scheme, r in out.items():
+        if not (r["objects"] == r["objects_cpu"] > 0 and r["same_classes"]
+                and r["centroid_gap_m"] <= SEM_CENTROID_TOL):
+            raise AssertionError(f"10c {scheme}: the card's database differs from the CPU's: {r}")
+        if not max(r["per_box_error_m"]) <= SEM_GT_TOL[scheme]:
+            raise AssertionError(f"10c {scheme}: a planted box lies {max(r['per_box_error_m']):.3f}"
+                                 f" m from every database object (limit {SEM_GT_TOL[scheme]})")
+    if out["merge_sg"]["label_pixels_differing"]:
+        raise AssertionError(f"10c: segment_objects labels differ from the CPU's on "
+                             f"{out['merge_sg']['label_pixels_differing']} pixels")
+    if len(seen_any) < 3:
+        raise AssertionError(f"10c: the views see {len(seen_any)} planted boxes")
+    return out
+
+
+def _cpu_consumers(payloads, cfg: SlamConfig, params: dict):
+    """The port's keyframe consumers on the CPU, replaying `payloads`:
+    the f32 detection, the configured fusion and `add_objects`."""
+    cpu = torch.device("cpu")
+    det = Detector(cfg.semantic, params=params, device=cpu)
+    db = empty_db(cfg.semantic.max_objects, cpu)
+    dets = []
+    with highest_precision():
+        for rgb, depth, T_cw in payloads:
+            d = det(_rgb(torch.from_numpy(rgb)))
+            dets.append(d)
+            res = fuse_detections(d, depth_metres(torch.from_numpy(depth)),
+                                  torch.from_numpy(T_cw), cfg.camera, cfg.semantic)
+            db = add_objects(db, *res)
+    return db, dets
+
+
+def run_semantic_system(dev, scene: dict, params: dict, cam: CameraConfig, card: str) -> dict:
+    """10d: `SlamSystem(enable_semantics=True).track_rgbd` on the scene
+    against `Tracker.process` on the same frames; then, with the score
+    gates at 0, its object database against the CPU's consumers replaying
+    its keyframe payloads; the consumers' times, and one keyframe's flush
+    under the profiler."""
+    cfg = SlamConfig(camera=cam)
+    n = scene["gray_host"].shape[0]
+    frames = [(scene["gray_host"][i], scene["depth_host"][i]) for i in range(n)]
+    stamps = np.arange(n) / 30.0
+
+    def drive(step):
+        runs = [_timed(lambda: step(gray, depth, float(stamps[i])), dev)
+                for i, (gray, depth) in enumerate(frames)]
+        return [ms for _, ms in runs], np.stack([T for T, _ in runs])
+
+    tracker = Tracker(cfg, device=dev)
+    plain_ms, plain_T = drive(tracker.process)
+    sys1 = SlamSystem(cfg, enable_semantics=True, detector_params=params, device=dev)
+    sys1.detector = counting = _CountingDetector(sys1.detector)
+    queued = []
+
+    def step1(gray, depth, stamp):
+        T = sys1.track_rgbd(gray, depth, stamp)
+        queued.append(len(sys1._det_queue))
+        return T
+
+    sem_ms, sem_T = drive(step1)
+    kf = _kf_frames(s["kfs"] for s in sys1.tracker.stats[1:])
+    kf_plain = _kf_frames(s["kfs"] for s in tracker.stats[1:])
+    gt = scene["poses"][:, :3, 3]
+    res = dict(frames=n, keyframe_frames=[0] + kf, statuses_ok=sum(
+        s["status"] == "OK" for s in sys1.tracker.stats), pose_gap_m=float(np.abs(
+            sem_T - plain_T).max()), position_gap_m=float(np.abs(
+            sys1.tracker.camera_positions() - tracker.camera_positions()).max()),
+        ate_m=evaluate_ate_xyz(sys1.tracker.camera_positions(), gt).rmse,
+        detector_calls=counting.calls, detector_batched=counting.batched,
+        objects_default_gates=int(sys1.object_db.valid.sum()),
+        median_frame_ms=statistics.median(sem_ms[1:]),
+        median_frame_ms_plain=statistics.median(plain_ms[1:]),
+        keyframe_frame_ms=[sem_ms[i] for i in kf],
+        keyframe_frame_ms_plain=[plain_ms[i] for i in kf])
+    # The score gates at 0: the seeded weights' boxes reach fusion.
+    cfg0 = cfg.replace(semantic=dataclasses.replace(cfg.semantic, det_score_threshold=0.0,
+                                                    fusion_prob_threshold=0.0))
+    sys2 = _RecordingSystem(cfg0, enable_semantics=True, detector_params=params, device=dev)
+    for i, (gray, depth) in enumerate(frames):
+        sys2.track_rgbd(gray, depth, float(stamps[i]))
+    cpu_db, cpu_dets = _cpu_consumers(sys2.payloads, cfg0, params)
+    card_db = sys2.object_db
+    v = card_db.valid.cpu()
+    det_diffs = []
+    for (rgb, _, _), d_cpu in zip(sys2.payloads, cpu_dets):
+        d = sys2.detector(_rgb(torch.from_numpy(rgb).to(dev)))
+        det_diffs.append(dict(
+            classes_equal=bool(torch.equal(d.classes.cpu(), d_cpu.classes)),
+            valid_equal=bool(torch.equal(d.valid.cpu(), d_cpu.valid)),
+            box_gap_px=float((d.boxes.cpu() - d_cpu.boxes).abs().max()),
+            score_gap=float((d.scores.cpu() - d_cpu.scores).abs().max())))
+    res.update(objects=int(v.sum()), objects_cpu=int(cpu_db.valid.sum()),
+               same_classes=bool(torch.equal(card_db.class_id.cpu(), cpu_db.class_id)),
+               centroid_gap_m=float((card_db.centroid.cpu() - cpu_db.centroid)[v].abs().max())
+               if v.any() else 0.0, keyframes_replayed=len(sys2.payloads),
+               detections_card_vs_cpu=det_diffs)
+    # A keyframe's consumers on the card, one by one, and one flush profiled.
+    rgb, depth, T_cw = (torch.from_numpy(a).to(dev) for a in sys2.payloads[-1])
+    rgb3 = _rgb(rgb)
+    depth_m = depth_metres(depth)
+    det = sys2.detector
+    with highest_precision():
+        d = det(rgb3)
+        fused = fuse_detections(d, depth_m, T_cw, cam, cfg0.semantic)
+        cons = dict(detect_ms=_sync_ms(lambda: det(rgb3), dev, 10))
+        for scheme in ("depth_window", "merge_sg"):
+            scfg = dataclasses.replace(cfg0.semantic, fusion_scheme=scheme)
+            cons[f"fusion_{scheme}_ms"] = _sync_ms(
+                lambda: fuse_detections(d, depth_m, T_cw, cam, scfg), dev, 10)
+        cons["add_objects_ms"] = _sync_ms(lambda: add_objects(card_db, *fused), dev, 10)
+        merge_cfg = dataclasses.replace(cfg0.semantic, fusion_scheme="merge_sg")
+        cons["merge_sg_profile"] = _profile_call(
+            lambda: fuse_detections(d, depth_m, T_cw, cam, merge_cfg), dev)
+    sys2._det_queue.append((rgb3, depth_m, T_cw))
+    cons["flush_profile"] = _profile_call(sys2.flush_detections, dev, prefix="semantic.")
+    res["consumers"] = cons
+    _log("10d SlamSystem with semantics: " + json.dumps(res) + f"; card: {card}")
+    if res["statuses_ok"] != n:
+        raise AssertionError(f"10d: {n - res['statuses_ok']} frames not OK")
+    if kf != kf_plain or res["pose_gap_m"] != 0.0 or res["position_gap_m"] != 0.0:
+        raise AssertionError(f"10d: semantics changed tracking: keyframes {kf} against {kf_plain}"
+                             f", poses {res['pose_gap_m']} m apart")
+    if not res["ate_m"] <= SEM_ATE_GATE:
+        raise AssertionError(f"10d: ATE {res['ate_m']:.5f} m > {SEM_ATE_GATE}")
+    if counting.calls != len(kf) + 1 or counting.batched or any(queued):
+        raise AssertionError(f"10d: {counting.calls} detector calls for {len(kf) + 1} keyframes, "
+                             f"queue lengths {queued}")
+    if not (res["objects"] == res["objects_cpu"] > 0 and res["same_classes"]
+            and res["centroid_gap_m"] <= SEM_CENTROID_TOL):
+        raise AssertionError(f"10d: the card's database ({res['objects']} objects) differs from "
+                             f"the CPU's replay ({res['objects_cpu']}): centroids "
+                             f"{res['centroid_gap_m']} m apart; detections {det_diffs}")
+    return res
+
+
+def run_semantic_path(dev, card: str, cam: CameraConfig | None = None,
+                      n_frames: int = SEM_FRAMES) -> dict:
+    """Phase 10 at `cam` (640x480 by default); the launch counters are
+    zeroed before and read after. The seeded full-width weights are passed
+    explicitly, and a missing-artifact warning is an error."""
+    cam = cam or CameraConfig()
+    t10 = time.perf_counter()
+    _reset_counts()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="trained artifact")
+        params = init_ssdlite(21, seed=0, device="cpu").state_dict()
+        scene = semantic_scene(dev, cam, n_frames)
+        net = check_semantic_network(dev, scene, params, card)
+        fusion = check_semantic_fusion(dev, scene, cam, card)
+        system = run_semantic_system(dev, scene, params, cam, card)
+    counts = _counts()
+    phase_s = time.perf_counter() - t10
+    _log(f"phase 10 took {phase_s:.1f} s (render {scene['render_ms_per_frame']:.2f} ms a frame), "
+         f"launches {json.dumps(counts)}; card: {card}")
+    if dev.type == "cuda" and counts["window_match"] == 0:
+        raise AssertionError("10: the semantic runs never launched the window matcher")
+    return dict(network=net, fusion=fusion, system=system, launches=counts, phase_s=phase_s)
+
+
 def host_times(dev) -> dict:
     """Host time of each wrapper's `prepare` and `launch`, and of the whole
     wrapper, for B1 at the main path's first shape and B2 at its size."""
@@ -2035,6 +2463,7 @@ def main() -> int:
     seg = run_segmented_path(dev, rendered[4], card)
     _log(f"phase 8 took {time.perf_counter() - t8:.1f} s; card: {card}")
     dyn = run_dynamic_path(dev, card)
+    sem = run_semantic_path(dev, card)
     kernels = [
         dict(name="window_match", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/window_match.cu",
@@ -2050,6 +2479,7 @@ def main() -> int:
              launches_scan=scan["launches"]["window_match"],
              launches_segmented=seg["launches"]["window_match"],
              launches_dynamic=dyn["launches"]["window_match"],
+             launches_semantic=sem["launches"]["window_match"],
              path="Tracker.process, default config"),
         dict(name="spd_solve", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/spd_solve.cu",
@@ -2063,6 +2493,7 @@ def main() -> int:
              launches_scan=scan["launches"]["spd_solve"],
              launches_segmented=seg["launches"]["spd_solve"],
              launches_dynamic=dyn["launches"]["spd_solve"],
+             launches_semantic=sem["launches"]["spd_solve"],
              path="local_mapping_step, window 12 + 8"),
     ]
     _log(f"summary: build {build_s:.2f} s, main path median {main_res['median_frame_ms']:.2f} "
@@ -2081,7 +2512,12 @@ def main() -> int:
          f"{dyn['tracking']['runs']['geom']['mask.geometry_mean_ms']:.2f} ms; 9d resolved ATE "
          f"{dyn['segmented']['unmasked']['ate_resolved_m']:.4f} / "
          f"{dyn['segmented']['flow']['ate_resolved_m']:.4f} / "
-         f"{dyn['segmented']['geom']['ate_resolved_m']:.4f} m; card: {card}")
+         f"{dyn['segmented']['geom']['ate_resolved_m']:.4f} m; SSDLite f32 "
+         f"{sem['network']['f32_forward_ms']:.2f} ms, bf16 batch of {SEM_BATCH} "
+         f"{sem['network']['bf16_forward_ms_batch']:.2f} ms; a frame with semantics "
+         f"{sem['system']['median_frame_ms']:.2f} ms (without "
+         f"{sem['system']['median_frame_ms_plain']:.2f}); phase 10 {sem['phase_s']:.1f} s; "
+         f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,12 +24,23 @@ Ported so far:
   and the multi-view geometry mask (`dynamic/geommask.py`), run by the
   Tracker's `dynamic.enable_*` and by the scan's and the segmented
   runner's `use_flow` and `use_geom`;
-- the device renderer of the synthetic scenes (`io/device_render.py`).
-Refused, not ported yet: semantics (`semantic/`), dense mapping
-(`dense/`), persistence (`io/map_io.py`), the `system.py` facade and the
-multi-device code (`parallel/`). The first four have no module here; the
-multi-device entries raise NotImplementedError (`LoopCloser`'s `mesh`,
-the sharded global BA).
+- the device renderer of the synthetic scenes (`io/device_render.py`);
+- semantics: the MobileNetV2-SSDLite detector (`semantic/ssdlite.py`,
+  with Flax checkpoints carried across), preprocessing, anchor decode and
+  NMS (`semantic/detector.py`), the depth-window and MergeSG fusion
+  (`semantic/fusion.py`), the object database (`semantic/object_db.py`)
+  and the host metrics of `semantic/consume.py`;
+- the semantic half of the facade: `system.SlamSystem` with
+  `enable_semantics`, its `track_rgbd` running the keyframe consumers,
+  the mode switches, reset, the trajectory writers and the object
+  listing and persistence.
+Refused, not ported yet: dense mapping (`dense/`, the batched consumer
+`semantic/consume.make_batched_consume`), the stereo and monocular front
+ends, map persistence (`io/map_io.py`), training (`semantic/train.py`)
+and the multi-device code (`parallel/`). `SlamSystem` raises
+NotImplementedError for `enable_dense_map`, a `mesh`, `track_stereo`,
+`track_monocular`, `save_map`, `load_map`, `save_octomap` and
+`load_octomap`; so do `LoopCloser`'s `mesh` and the sharded global BA.
 """
 
 __version__ = "0.1.0"

@@ -65,10 +65,10 @@ def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
 
 
 def resize_linear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Antialiased linear resize, `jax.image.resize(..., "linear")`
-    semantics, as two weight-matrix products (full f32: the entry points
-    turn TF32 off)."""
-    h, w = img.shape
+    """Antialiased linear resize of the last two dims, `jax.image.resize(
+    ..., "linear")` semantics, as two weight-matrix products (full f32:
+    the entry points turn TF32 off); leading dims are a batch."""
+    h, w = img.shape[-2:]
     wh = _resize_weights(h, out_h, img.device)
     ww = _resize_weights(w, out_w, img.device)
     return (wh.T @ img) @ ww

@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port: it loads neither JAX, Triton nor the
-JAX package; its entry points (the Tracker and the whole-sequence scan
-and segmented runner) run on the card unless asked for the CPU; the
+JAX package; its entry points (the Tracker, the whole-sequence scan and
+segmented runner, `SlamSystem` and the detector) run on the card unless
+asked for the CPU; `SlamSystem` refuses the parts not ported yet; the
 dynamic masks (the Tracker's `dynamic.enable_*`, the scan's and the
 segmented runner's `use_flow` and `use_geom`), loop closing and
 relocalization, together or alone, are accepted."""
@@ -60,6 +61,42 @@ def test_tracker_defaults_to_the_card():
         Tracker(SlamConfig(loop=NO_LOOP))
 
 
+def test_slam_system_and_detector_default_to_the_card():
+    from orb_slam2_ssd_semantic_tpu_torch.config import SemanticConfig
+    from orb_slam2_ssd_semantic_tpu_torch.semantic.detector import Detector
+    from orb_slam2_ssd_semantic_tpu_torch.semantic.object_db import empty_db
+    from orb_slam2_ssd_semantic_tpu_torch.semantic.ssdlite import init_ssdlite
+    from orb_slam2_ssd_semantic_tpu_torch.system import SlamSystem
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    for make in (lambda: SlamSystem(SlamConfig(loop=NO_LOOP)),
+                 lambda: SlamSystem(SlamConfig(loop=NO_LOOP), enable_semantics=True),
+                 lambda: Detector(SemanticConfig(checkpoint_path=None)),
+                 lambda: init_ssdlite(21), lambda: empty_db(4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+@pytest.mark.parametrize("call", ["enable_dense_map", "mesh", "track_stereo", "track_monocular",
+                                  "save_map", "load_map", "save_octomap", "load_octomap"])
+def test_slam_system_refuses_unported_parts(call, tmp_path):
+    """Dense mapping, the other sensor modes, map persistence and the mesh
+    are refused, naming the slice they wait for."""
+    from orb_slam2_ssd_semantic_tpu_torch.system import SlamSystem
+
+    cfg = SlamConfig(loop=NO_LOOP)
+    if call in ("enable_dense_map", "mesh"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            SlamSystem(cfg, device="cpu", **{call: True if call == "enable_dense_map" else object()})
+        return
+    sys_ = SlamSystem(cfg, device="cpu")
+    args = {"track_stereo": (np.zeros((8, 8)), np.zeros((8, 8)), 0.0),
+            "track_monocular": (np.zeros((8, 8)), 0.0)}.get(call, (str(tmp_path / "x.npz"),))
+    with pytest.raises(NotImplementedError, match="slice"):
+        getattr(sys_, call)(*args)
+
+
 def test_scan_entries_default_to_the_card():
     import numpy as np
 
@@ -101,9 +138,8 @@ def _small_config(**dynamic):
 
 
 @pytest.mark.parametrize("mask", ["use_flow", "use_geom"])
-def test_scan_entries_refuse_unported_masks(mask):
-    """The masks are ported: the scan and the segmented runner take
-    `use_flow` and `use_geom` (the name is kept from when they raised)."""
+def test_scan_entries_accept_masks(mask):
+    """The scan and the segmented runner take `use_flow` and `use_geom`."""
     from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import empty_state
     from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker
     from orb_slam2_ssd_semantic_tpu_torch.tracking.segmented import track_sequence_segmented
@@ -124,10 +160,9 @@ def test_scan_entries_refuse_unported_masks(mask):
     SlamConfig(loop=NO_LOOP, dynamic=DynamicConfig(enable_flow=True)),
     SlamConfig(loop=NO_LOOP, dynamic=DynamicConfig(enable_geometry=True)),
 ], ids=["flow", "geometry"])
-def test_tracker_refuses_unported_subsystems(cfg):
-    """The masks are ported: the Tracker takes each `dynamic.enable_*`
-    (the name is kept from when it raised) and runs the mask's stage from
-    the second frame on."""
+def test_tracker_accepts_masks(cfg):
+    """The Tracker takes each `dynamic.enable_*` and runs the mask's stage
+    from the second frame on."""
     from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
 
     small = _small_config(enable_flow=cfg.dynamic.enable_flow,
