@@ -5,7 +5,10 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught). They run in the
+order 1-3, 9-11, 4-8: phases 4-8's views render on the CPU in a pool of
+worker processes at a lower priority while phases 9-11, which render on
+the card, run.
   1. print the card (nvidia-smi) and torch; build the CUDA kernels from
      `orb_slam2_ssd_semantic_tpu_torch/csrc/` with nvcc (one process per
      source, all at once) into `build/torch_kernels/`; time an empty
@@ -15,8 +18,9 @@ Phases (any failure exits non-zero; nothing is caught):
      path's shapes and at shapes that leave ragged tiles, on a tie-heavy
      problem, with all targets or some queries masked, and with a scalar
      radius, and at loop closing's two shapes ((1024, 1024) at a 40 px
-     window, (4096, 1024) at 8 px): all four outputs exactly equal, and
-     equal again on a second run;
+     window, (4096, 1024) at 8 px) and the monocular initializer's
+     ((1024, 1024) at 100 px): all four outputs exactly equal, and equal
+     again on a second run;
   3. the SPD solve (B2) against its plain version and an f64 solve, with
      the Pallas kernel tests' tolerances, at six sizes, through a strided
      and a transposed view, and on a near-singular damped system;
@@ -146,7 +150,38 @@ Phases (any failure exits non-zero; nothing is caught):
         payloads (count, classes, centroids within 1e-4 m); ms a frame with
         and without semantics, each consumer's ms, a flush's launches and
         syncs under the profiler;
- 11. one JSON line of per-kernel numbers, the card's name and power limit,
+ 11. the dense map, persistence and the other sensor modes on phase 10's
+     frames (counts zeroed before, read after; B1's and B2's launches here
+     are `launches_dense`):
+     a. at 640x480 on one keyframe, card against CPU: `keyframe_cloud`
+        (within 1e-5 m), `split_ground` on the same hypotheses, and
+        `insert_scan` of the same cloud into the 64^3 block holding most
+        endpoints and into the batched consumer's 160 x 40 x 160 grid at
+        0.1 m (log-odds flips at most 1e-4 of the touched voxels, colors
+        within 1e-5); the ms of each and one block insertion's launches
+        and syncs;
+     b. `SlamSystem(enable_semantics=True, enable_dense_map=True)` on the
+        48 frames with a keyframe at least every 4, against
+        `Tracker.process` at that config: every frame OK, keyframes and
+        poses equal (0.0 m), > 500 occupied voxels, >= 90% of their
+        centres within 0.075 m of a wall or a box face; every block against
+        the CPU replaying the keyframe payloads; the octomap file round
+        trip (1e-5 m); a map saved after frame 39 and loaded into a new
+        system localizes the last 8 frames (no new keyframe, never LOST);
+        a keyframe's frame ms with and without the dense map, a keyframe's
+        dense consumer ms and its launches and syncs;
+     c. `make_batched_consume` on 11b's keyframes against the engine path
+        on the same payloads, with `tests/test_semantic.py`'s rules (object
+        counts equal, centroids within 0.10 m, at most 2% of the touched
+        voxels differing); its ms;
+     d. `track_stereo` on 24 pairs (right views rendered on the card at
+        the baseline bf / fx): no frame LOST, two extractions a frame, ATE
+        under twice the CPU rehearsal's;
+     e. `track_monocular` on 24 gray frames: initialized, >= 2 keyframes,
+        finite poses, the camera moved, B1 launched at the initializer's
+        (1024, 1024) r = 100 search (also held exact against the plain
+        version in phase 2);
+ 12. one JSON line of per-kernel numbers, the card's name and power limit,
      and the result line last.
 
 Without a CUDA card it exits non-zero and prints no result.
@@ -180,9 +215,16 @@ import torch
 
 from orb_slam2_ssd_semantic_tpu_torch.config import (
     CameraConfig,
+    DenseMapConfig,
     DynamicConfig,
     SemanticConfig,
     SlamConfig,
+)
+from orb_slam2_ssd_semantic_tpu_torch.dense.occupancy import empty_grid, insert_scan
+from orb_slam2_ssd_semantic_tpu_torch.dense.pointcloud import (
+    keyframe_cloud,
+    sample_ground_hypotheses,
+    split_ground,
 )
 from orb_slam2_ssd_semantic_tpu_torch.dynamic.flowmask import (
     downscaled_flow,
@@ -195,6 +237,8 @@ from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import (
     insert_ref_view,
 )
 from orb_slam2_ssd_semantic_tpu_torch.eval.ate import evaluate_ate_xyz
+from orb_slam2_ssd_semantic_tpu_torch.frontend import extractor
+from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
 from orb_slam2_ssd_semantic_tpu_torch.io import device_render
 from orb_slam2_ssd_semantic_tpu_torch.io import vocabulary as voc
 from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import (
@@ -223,12 +267,16 @@ from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build, cuda_match, cuda_so
 from orb_slam2_ssd_semantic_tpu_torch.ops.homography import sample_minimal_sets
 from orb_slam2_ssd_semantic_tpu_torch.ops.match import window_mask
 from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker
+from orb_slam2_ssd_semantic_tpu_torch.tracking import tracker as tracker_mod
 from orb_slam2_ssd_semantic_tpu_torch.tracking.reloc import relocalize
 from orb_slam2_ssd_semantic_tpu_torch.tracking.segmented import (
     resolve_trajectory,
     track_sequence_segmented,
 )
-from orb_slam2_ssd_semantic_tpu_torch.semantic.consume import gt_box_localization
+from orb_slam2_ssd_semantic_tpu_torch.semantic.consume import (
+    gt_box_localization,
+    make_batched_consume,
+)
 from orb_slam2_ssd_semantic_tpu_torch.semantic.detector import Detections, Detector
 from orb_slam2_ssd_semantic_tpu_torch.semantic.fusion import fuse_detections, segment_objects
 from orb_slam2_ssd_semantic_tpu_torch.semantic.object_db import add_objects, empty_db
@@ -266,6 +314,9 @@ B1_SHAPES = ((2048, 1024), (1024, 1024), (512, 128), (768, 384), (256, 128), (30
 # (K x K at the wide 40 px window) and the guided confirmation (4096
 # landmarks x K keypoints at the fine 8 px window), with TH_LOW.
 B1_LOOP_SHAPES = ((1024, 1024, 40.0), (4096, 1024, 8.0))
+# B1 at the monocular initializer's search (K x K at SearchForInitialization's
+# 100 px window, TH_LOW; `SlamSystem._mono_initialize`).
+B1_INIT_SHAPE = (1024, 1024, 100.0)
 B2_SIZES = (6, 59, 96, 108, 120, 128)
 B2_MAIN_N = 120
 # Times of the kernels these replaced (one thread per query on 8 blocks; a
@@ -395,6 +446,32 @@ SEM_NET_TOL, SEM_BF16_TOL = 1e-3, 0.05
 SEM_BOX_TOL, SEM_SCORE_TOL = 1e-3, 1e-6
 SEM_CENTROID_TOL, SEM_ATE_GATE = 1e-4, 0.01
 SEM_GT_TOL = {"depth_window": 0.10, "merge_sg": 0.4}
+# Phase 11 (the dense map, persistence, stereo, monocular) on phase 10's
+# frames. 11a: one keyframe (view DENSE_VIEW, in camera 0's frame) card
+# against CPU: clouds within DENSE_CLOUD_TOL, and maps inserted from the
+# same cloud with at most DENSE_FLIP_SHARE of the touched voxels differing
+# (the CPU tests' rule against JAX; the CPU measured none), colors within
+# DENSE_COLOR_TOL. 11b: a keyframe at least every DENSE_KF_GAP frames
+# (`tests/test_system.py`); the occupied centres, taken to the world frame
+# by frame 0's true pose, must lie within DENSE_SURFACE_TOL of a wall or a
+# box face (the voxel half-diagonal is 0.043 m) for DENSE_SURFACE_SHARE of
+# them; the last DENSE_LOC_FRAMES frames localize on a saved map. 11c: the
+# batched consumer at 0.1 m on `tests/test_semantic.py`'s grid, with that
+# test's rules. 11d: STEREO_FRAMES pairs; the CPU rehearsal of 11d on
+# CPU-rendered frames (`run_stereo` on `torch.device("cpu")`, 640x480)
+# gave an ATE of STEREO_CPU_ATE (0.0024569 m, 24 frames all OK). 11e:
+# MONO_FRAMES gray frames.
+DENSE_VIEW, DENSE_KF_GAP, DENSE_LOC_FRAMES = 24, 4, 8
+DENSE_CLOUD_TOL, DENSE_FLIP_SHARE, DENSE_COLOR_TOL = 1e-5, 1e-4, 1e-5
+DENSE_SURFACE_TOL, DENSE_SURFACE_SHARE, DENSE_MIN_OCCUPIED = 0.075, 0.90, 500
+OCTO_TOL = 1e-5
+CONSUME_GRID = dict(grid_extent=(10.0, 6.0, 10.0), grid_origin=(-2.0, -3.0, -2.0),
+                    grid_resolution=0.1)
+CONSUME_BENCH_EXTENT, CONSUME_BENCH_ORIGIN = (16.0, 4.0, 16.0), (-2.0, 0.0, -2.0)
+CONSUME_CENTROID_TOL, CONSUME_VOXEL_SHARE = 0.10, 0.02
+STEREO_FRAMES, STEREO_ATE_FACTOR = 24, 2.0
+STEREO_CPU_ATE = 0.0024569
+MONO_FRAMES = 24
 
 
 def _log(msg: str) -> None:
@@ -627,12 +704,12 @@ def check_b1(dev) -> dict:
          f"second), all targets masked, every fifth query masked, scalar and strided radius: "
          f"all exact; a second run of the first problem gave the same bits")
     loop_rows = []
-    for j, (q, t, r) in enumerate(B1_LOOP_SHAPES):
+    for j, (q, t, r) in enumerate(B1_LOOP_SHAPES + (B1_INIT_SHAPE,)):
         p = _b1_problem(300 + j, q, t, dev) | {"radius": torch.full((q,), r, device=dev)}
-        got, err = _b1_compare(p, 50, f"loop shape Q={q} T={t} r={r}")
+        got, err = _b1_compare(p, 50, f"shape Q={q} T={t} r={r}")
         n_claimed = int((got[3] < cuda_match.BIG_KEY).sum())
         if n_claimed == 0:
-            raise AssertionError(f"B1 loop shape Q={q} T={t} claimed no target")
+            raise AssertionError(f"B1 shape Q={q} T={t} r={r} claimed no target")
         prepared, _ = cuda_match.prepare(**p, max_dist=50)
         ms = _time_ms(lambda: cuda_match.launch(prepared))
         device_ms = _graph_ms(lambda: cuda_match.window_match(**p, max_dist=50))
@@ -644,12 +721,13 @@ def check_b1(dev) -> dict:
         loop_rows.append(dict(q=q, t=t, radius=r, max_abs_err=err, claimed=n_claimed, ms=ms,
                               device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound,
                               bound_by=by))
-        _log(f"B1 window_match loop shape Q={q} T={t} r={r}: exact (tolerance 0), {n_claimed} "
+        kind = "initializer" if (q, t, r) == B1_INIT_SHAPE else "loop"
+        _log(f"B1 window_match {kind} shape Q={q} T={t} r={r}: exact (tolerance 0), {n_claimed} "
              f"targets claimed; launch to end {ms:.4f} ms, on the device {device_ms:.4f} ms, "
              f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by})")
     return rows[0] | {"max_abs_err": max(err_ties, err_none, err_some, err_radius,
                                          *(r["max_abs_err"] for r in rows + loop_rows)),
-                      "loop_shapes": loop_rows}
+                      "loop_shapes": loop_rows[:-1], "init_shape": loop_rows[-1]}
 
 
 # ---- phase 3: B2 -------------------------------------------------------------
@@ -754,6 +832,9 @@ def segmented_sequence(cam: CameraConfig | None = None) -> SyntheticSequence:
 
 def _render_init(n_frames: int, seg_cam: CameraConfig | None = None) -> None:
     global _SEQ, _LOOP_SEQ, _LOOP_ROOM, _SEG_SEQ
+    # The pool may render while the main process drives the card (`main`):
+    # a lower priority leaves that process its core.
+    os.nice(10)
     _SEQ = SyntheticSequence(n_frames=n_frames)
     _LOOP_SEQ = loop_sequence()
     _LOOP_ROOM = BoxRoom(seed=3, cam=CameraConfig())
@@ -800,39 +881,64 @@ def kidnap_poses(seq: SyntheticSequence) -> list:
     return [(seq.poses_wc[i] @ roll).astype(np.float32) for i in range(KIDNAP_FRAMES)]
 
 
-def render_frames(n_frames: int, n_loop: int = 0, n_seg: int = 0,
-                  seg_cam: CameraConfig | None = None):
-    """Render the sequence's frames, phase 6's kidnapped views, with
-    `n_loop` phase 7's views (the first `n_loop` frames of 7c's sequence,
-    7a's revisit and open-arc keyframes) and with `n_seg` the first
-    `n_seg` frames of phase 8b's sequence (at `seg_cam`, 640x480 by
-    default) in one pool of worker processes (the renderer is
-    single-threaded numpy); returns (sequence, frames, [(T_wc, frame)] of
-    the kidnapped views, phase 7's views or None, phase 8b's sequence and
-    frames or None)."""
+def start_render(n_frames: int, n_loop: int = 0, n_seg: int = 0,
+                 seg_cam: CameraConfig | None = None) -> dict:
+    """Start rendering the sequence's frames, phase 6's kidnapped views,
+    with `n_loop` phase 7's views (the first `n_loop` frames of 7c's
+    sequence, 7a's revisit and open-arc keyframes) and with `n_seg` the
+    first `n_seg` frames of phase 8b's sequence (at `seg_cam`, 640x480 by
+    default) in a pool of worker processes (the renderer is
+    single-threaded numpy); `finish_render` collects them."""
     seq = SyntheticSequence(n_frames=n_frames)
     poses = kidnap_poses(seq)
     tasks = list(range(n_frames)) + poses
+    arcs = None
     if n_loop:
         arcs = {"revisit": closure_poses(True), "open": closure_poses(False)}
         tasks += [("loop", i) for i in range(n_loop)]
         tasks += [("room3", T) for T in arcs["revisit"] + arcs["open"]]
     tasks += [("seg", i) for i in range(n_seg)]
     workers = max(1, min(8, os.cpu_count() or 1))
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(workers, initializer=_render_init, initargs=(n_frames, seg_cam)) as pool:
-        out = pool.map(_render, tasks)
+    pool = multiprocessing.get_context("spawn").Pool(
+        workers, initializer=_render_init, initargs=(n_frames, seg_cam))
+    return dict(pool=pool, result=pool.map_async(_render, tasks), t0=time.perf_counter(),
+                seq=seq, poses=poses, arcs=arcs, n_frames=n_frames, n_loop=n_loop,
+                n_seg=n_seg, seg_cam=seg_cam)
+
+
+def finish_render(job: dict):
+    """Wait for `start_render`'s views and stop its pool. Returns
+    (sequence, frames, [(T_wc, frame)] of the kidnapped views, phase 7's
+    views or None, phase 8b's sequence and frames or None)."""
+    t_wait = time.perf_counter()
+    try:
+        out = job["result"].get()
+    finally:
+        job["pool"].terminate()
+        job["pool"].join()
+    n_frames, n_loop, n_seg, poses = job["n_frames"], job["n_loop"], job["n_seg"], job["poses"]
+    n7 = n_loop + 2 * LOOP_N_KF if n_loop else 0
+    _log(f"rendered {n_frames} frames, {KIDNAP_FRAMES} kidnapped views, phase 7's {n7} views "
+         f"and phase 8b's {n_seg} in {time.perf_counter() - job['t0']:.1f} s, of which "
+         f"{time.perf_counter() - t_wait:.1f} s were waited for")
     n_kid = n_frames + len(poses)
     loop = seg = None
     k = n_kid
     if n_loop:
-        k = n_kid + n_loop + 2 * LOOP_N_KF
+        arcs = job["arcs"]
+        k = n_kid + n7
         loop = dict(seq=loop_sequence(), frames=out[n_kid:n_kid + n_loop],
                     revisit=(arcs["revisit"], out[n_kid + n_loop:n_kid + n_loop + LOOP_N_KF]),
                     open=(arcs["open"], out[n_kid + n_loop + LOOP_N_KF:k]))
     if n_seg:
-        seg = dict(seq=segmented_sequence(seg_cam), frames=out[k:])
-    return seq, out[:n_frames], list(zip(poses, out[n_frames:n_kid])), loop, seg
+        seg = dict(seq=segmented_sequence(job["seg_cam"]), frames=out[k:])
+    return job["seq"], out[:n_frames], list(zip(poses, out[n_frames:n_kid])), loop, seg
+
+
+def render_frames(n_frames: int, n_loop: int = 0, n_seg: int = 0,
+                  seg_cam: CameraConfig | None = None):
+    """`start_render` and `finish_render` in one call."""
+    return finish_render(start_render(n_frames, n_loop, n_seg, seg_cam))
 
 
 def main_path_config() -> SlamConfig:
@@ -868,16 +974,16 @@ def _device_breakdown(prof, n_frames: int, frame_ms: float) -> dict:
 
 
 def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
-                  n_seg: int = SEG_FRAMES, seg_cam: CameraConfig | None = None) -> dict:
-    """Phase 4. The result holds the tracker, the poses `process` returned
+                  n_seg: int = SEG_FRAMES, seg_cam: CameraConfig | None = None,
+                  rendered=None) -> dict:
+    """Phase 4, on `rendered` (`finish_render`'s result; rendered here
+    when None). The result holds the tracker, the poses `process` returned
     and what was rendered (also phase 6's kidnapped views and phases 7 and
     8b's views), for phases 5-8."""
-    t0 = time.perf_counter()
-    rendered = render_frames(n_frames, n_loop, n_seg, seg_cam)
-    n7 = n_loop + 2 * LOOP_N_KF if n_loop else 0
-    _log(f"rendered {n_frames} frames, {KIDNAP_FRAMES} kidnapped views, phase 7's {n7} "
-         f"views and phase 8b's {n_seg} in {time.perf_counter() - t0:.1f} s")
+    if rendered is None:
+        rendered = render_frames(n_frames, n_loop, n_seg, seg_cam)
     seq, frames, *_ = rendered
+    n_frames = len(frames)
     cfg = main_path_config()
     tracker = Tracker(cfg, device=dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -2072,14 +2178,16 @@ class _CountingDetector:
 
 
 class _RecordingSystem(SlamSystem):
-    """`SlamSystem` that keeps each keyframe payload its consumers got."""
+    """`SlamSystem` that keeps each keyframe payload its consumers got, and
+    the frame it came with."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        self.payloads = []
+        self.payloads, self.frames = [], []
 
     def _on_new_keyframe(self, rgb, depth, T_cw):
         self.payloads.append((np.array(rgb), np.array(depth), np.array(T_cw, np.float32)))
+        self.frames.append(len(self.tracker.stats) - 1)
         super()._on_new_keyframe(rgb, depth, T_cw)
 
 
@@ -2099,7 +2207,7 @@ def semantic_scene(dev, cam: CameraConfig, n_frames: int = SEM_FRAMES) -> dict:
     classes = [int(round((level / 127.5 - 0.2) * 3 / 1.6)) for level in SEM_FLAT_BOXES.values()]
     return dict(poses=poses, grays=g, depths=d, gray_host=g.cpu().numpy(),
                 depth_host=d.cpu().numpy(), gt_boxes=np.stack(boxes), classes=classes,
-                render_ms_per_frame=render_ms / n_frames)
+                box_gray=tuple(gray), render_ms_per_frame=render_ms / n_frames)
 
 
 def _rgb(gray: torch.Tensor) -> torch.Tensor:
@@ -2405,7 +2513,436 @@ def run_semantic_path(dev, card: str, cam: CameraConfig | None = None,
          f"launches {json.dumps(counts)}; card: {card}")
     if dev.type == "cuda" and counts["window_match"] == 0:
         raise AssertionError("10: the semantic runs never launched the window matcher")
-    return dict(network=net, fusion=fusion, system=system, launches=counts, phase_s=phase_s)
+    return dict(network=net, fusion=fusion, system=system, launches=counts, phase_s=phase_s,
+                scene=scene, params=params)
+
+
+# ---- phase 11: the dense map, persistence, stereo and monocular --------------
+
+class _B1Shapes:
+    """Records (Q, T, radius) of every window-matcher call that reaches the
+    card (through `cuda_match.prepare`; a radius given as a tensor is
+    recorded as None). The launch counts are untouched."""
+
+    def __enter__(self):
+        self.seen, self._prepare = [], cuda_match.prepare
+
+        def recording(desc_q, desc_t, centers, uv_t, radius, *args, **kw):
+            r = float(radius) if isinstance(radius, (int, float)) else None
+            self.seen.append((desc_q.shape[0], desc_t.shape[0], r))
+            return self._prepare(desc_q, desc_t, centers, uv_t, radius, *args, **kw)
+
+        cuda_match.prepare = recording
+        return self
+
+    def __exit__(self, *exc):
+        cuda_match.prepare = self._prepare
+
+
+class _CountingExtract:
+    """Counts ORB extractions: replaces `extract` where the system and the
+    tracker look it up."""
+
+    def __enter__(self):
+        self.calls, self._orig = 0, extractor.extract
+
+        def counting(*args, **kw):
+            self.calls += 1
+            return self._orig(*args, **kw)
+
+        extractor.extract = tracker_mod.extract = counting
+        return self
+
+    def __exit__(self, *exc):
+        extractor.extract = tracker_mod.extract = self._orig
+
+
+def _consume_dense(dense: DenseMapConfig) -> DenseMapConfig:
+    """The batched consumer's ray schedule at CONSUME_GRID's resolution."""
+    res = CONSUME_GRID["grid_resolution"]
+    return dataclasses.replace(dense, resolution=res,
+                               max_ray_steps=int(dense.cloud_max_depth / res) + 8)
+
+
+def _grid_gaps(card_grid, cpu_grid) -> dict:
+    """Log-odds flips (voxels not equal) against the voxels either map
+    touched, and the color sums' largest difference."""
+    lc, lp = card_grid.log_odds.cpu(), cpu_grid.log_odds
+    return dict(touched=int(((lc != 0) | (lp != 0)).sum()), flips=int((lc != lp).sum()),
+                color_gap=float((card_grid.color.cpu() - cpu_grid.color).abs().max()),
+                n_color_gap=float((card_grid.n_color.cpu() - cpu_grid.n_color).abs().max()))
+
+
+def _check_gaps(label: str, r: dict) -> None:
+    if r["touched"] == 0:
+        raise AssertionError(f"{label}: no voxel touched")
+    if not (r["flips"] <= DENSE_FLIP_SHARE * r["touched"] and r["color_gap"] <= DENSE_COLOR_TOL
+            and r["n_color_gap"] == 0.0):
+        raise AssertionError(f"{label}: the card's map differs from the CPU's: {r} (limits: "
+                             f"{DENSE_FLIP_SHARE} of the touched voxels, colors {DENSE_COLOR_TOL})")
+
+
+def check_dense_functions(dev, scene: dict, cam: CameraConfig, card: str) -> dict:
+    """11a: `keyframe_cloud`, `split_ground` on the same hypotheses and
+    `insert_scan` (into the 64^3 block holding most endpoints, and into
+    the batched consumer's 160 x 40 x 160 grid at 0.1 m) at full width on
+    one keyframe, on the card and on the CPU: the inserts take the CPU's
+    cloud, so their maps must agree voxel for voxel. The ms of each on the
+    card, and the launches and syncs of one block insertion."""
+    cpu = torch.device("cpu")
+    dense = DenseMapConfig()
+    poses = scene["poses"]
+    # View DENSE_VIEW in camera 0's frame, as the tracker's map holds it.
+    T_np = (np.linalg.inv(poses[DENSE_VIEW]) @ poses[0]).astype(np.float32)
+    T_cw = torch.from_numpy(T_np)
+    depth = scene["depths"][DENSE_VIEW].to(torch.float32) * 1e-3
+    gray = scene["grays"][DENSE_VIEW].to(torch.float32)
+    out = {}
+    with highest_precision():
+        pts, valid, colors = keyframe_cloud(depth, T_cw.to(dev), cam, dense, gray_img=gray)
+        pts_c, valid_c, colors_c = keyframe_cloud(depth.cpu(), T_cw, cam, dense,
+                                                  gray_img=gray.cpu())
+        idx = sample_ground_hypotheses(valid_c, dense.ground_ransac_iters,
+                                       torch.Generator().manual_seed(0))
+        ground, plane = split_ground(pts, valid, idx.to(dev), 1, dense)
+        ground_c, plane_c = split_ground(pts_c, valid_c, idx, 1, dense)
+        out.update(
+            points=int(valid_c.sum()), cloud_gap_m=float((pts.cpu() - pts_c).abs().max()),
+            mask_equal=bool(torch.equal(valid.cpu(), valid_c)),
+            colors_equal=bool(torch.equal(colors.cpu(), colors_c)),
+            ground_points=int(ground_c.sum()),
+            ground_differing=int((ground.cpu() != ground_c).sum()),
+            plane_gap=float((plane.cpu() - plane_c).abs().max()), plane=plane_c.tolist(),
+            cloud_ms=_sync_ms(lambda: keyframe_cloud(depth, T_cw.to(dev), cam, dense,
+                                                     gray_img=gray), dev, 10),
+            ground_ms=_sync_ms(lambda: split_ground(pts, valid, sample_ground_hypotheses(
+                valid, dense.ground_ransac_iters, torch.Generator().manual_seed(0)), 1, dense),
+                dev, 10))
+        args_c = (se3.se3_inverse(T_cw)[:3, 3], pts_c, valid_c)
+        args = tuple(a.to(dev) for a in args_c)
+        e = dense.block_voxels * dense.resolution
+        keys, counts = torch.unique(torch.floor(pts_c[valid_c] / e).to(torch.int64), dim=0,
+                                    return_counts=True)
+        key = keys[counts.argmax()].tolist()
+        cases = (
+            ("block_64", lambda d: empty_grid(extent=(e, e, e), resolution=dense.resolution,
+                                              origin=tuple(k * e for k in key), device=d),
+             dense, dict(colors=colors_c, carve_only=ground_c)),
+            ("consume_grid", lambda d: empty_grid(extent=CONSUME_BENCH_EXTENT,
+                                                  resolution=CONSUME_GRID["grid_resolution"],
+                                                  origin=CONSUME_BENCH_ORIGIN, device=d),
+             _consume_dense(dense), dict(carve_only=ground_c)),
+        )
+        for name, make, cfg, kw_c in cases:
+            kw = {k: v.to(dev) for k, v in kw_c.items()}
+            r = _grid_gaps(insert_scan(make(dev), *args, cfg=cfg, **kw),
+                           insert_scan(make(cpu), *args_c, cfg=cfg, **kw_c))
+            g0 = make(dev)
+            r.update(shape=list(g0.shape), ray_steps=cfg.max_ray_steps,
+                     ms=_sync_ms(lambda: insert_scan(g0, *args, cfg=cfg, **kw), dev, 10),
+                     profile=_profile_call(lambda: insert_scan(g0, *args, cfg=cfg, **kw), dev,
+                                           prefix="dense."))
+            out[name] = r
+    _log(f"11a dense functions at {cam.width}x{cam.height} (view {DENSE_VIEW}, block {key}): "
+         f"{json.dumps(out)}; limits: cloud {DENSE_CLOUD_TOL} m, log-odds flips "
+         f"{DENSE_FLIP_SHARE} of the touched voxels; card: {card}")
+    if not (out["cloud_gap_m"] <= DENSE_CLOUD_TOL and out["mask_equal"] and out["colors_equal"]):
+        raise AssertionError(f"11a: the card's keyframe cloud differs from the CPU's: {out}")
+    if not (out["ground_differing"] <= DENSE_FLIP_SHARE * out["points"]
+            and out["plane_gap"] <= DENSE_CLOUD_TOL and out["ground_points"] > 1000):
+        raise AssertionError(f"11a: the card's ground split differs from the CPU's: {out}")
+    for name, *_ in cases:
+        _check_gaps(f"11a {name}", out[name])
+    return out
+
+
+def _surface_distance(p: np.ndarray, room, boxes) -> np.ndarray:
+    """(M,) distance of world points to the nearest surface: a wall of the
+    room's AABB [0, room] or a face of one of its boxes."""
+
+    def to_surface(lo, hi):
+        lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+        outside = np.linalg.norm(np.maximum(np.maximum(lo - p, p - hi), 0.0), axis=1)
+        return np.where(outside > 0, outside, np.minimum(p - lo, hi - p).min(1))
+
+    d = to_surface(np.zeros(3), room)
+    for lo, hi in boxes:
+        d = np.minimum(d, to_surface(lo, hi))
+    return d
+
+
+def run_dense_system(dev, scene: dict, params: dict, cam: CameraConfig, card: str,
+                     work: Path) -> dict:
+    """11b: `SlamSystem(enable_semantics=True, enable_dense_map=True)` on
+    phase 10's frames with a keyframe at least every DENSE_KF_GAP frames,
+    against `Tracker.process` at the same config; its map against the
+    room's surfaces and against the CPU replaying its keyframe payloads;
+    the occupancy file round trip; and a map saved after frame
+    n - DENSE_LOC_FRAMES - 1, loaded into a new system that localizes on
+    the last DENSE_LOC_FRAMES frames."""
+    cpu = torch.device("cpu")
+    base = SlamConfig(camera=cam)
+    cfg = base.replace(tracking=dataclasses.replace(base.tracking,
+                                                    max_frames_between_kfs=DENSE_KF_GAP))
+    n = scene["gray_host"].shape[0]
+    frames = [(scene["gray_host"][i], scene["depth_host"][i], i / 30.0) for i in range(n)]
+
+    def drive(step, idx):
+        runs = [_timed(lambda: step(*frames[i]), dev) for i in idx]
+        return [ms for _, ms in runs], [T for T, _ in runs]
+
+    tracker = Tracker(cfg, device=dev)
+    plain_ms, plain_T = drive(tracker.process, range(n))
+    sys_ = _RecordingSystem(cfg, enable_semantics=True, enable_dense_map=True,
+                            detector_params=params, device=dev)
+    dense_ms, insert = [], sys_._insert_keyframe_cloud
+    sys_._insert_keyframe_cloud = lambda *a: dense_ms.append(_timed(lambda: insert(*a), dev)[1])
+    split = n - DENSE_LOC_FRAMES
+    sys_ms, sys_T = drive(sys_.track_rgbd, range(split))
+    map_path = str(work / "map.npz")
+    sys_.save_map(map_path)
+    tr = sys_.tracker
+    snap = dict(last_T_cw=tr.last_T_cw.clone(), last_frame=tr.last_frame,
+                last_kp_point=tr.last_kp_point.clone(), velocity=tr.velocity.clone(),
+                n_kfs=tr._n_kfs)
+    ms2, T2 = drive(sys_.track_rgbd, range(split, n))
+    sys_ms, sys_T = sys_ms + ms2, np.stack(sys_T + T2)
+    kf = _kf_frames(s["kfs"] for s in tr.stats[1:])
+    kf_plain = _kf_frames(s["kfs"] for s in tracker.stats[1:])
+    centers, _ = sys_.grid.occupied_centers()
+    T0 = scene["poses"][0].astype(np.float64)
+    dist = _surface_distance(centers @ T0[:3, :3].T + T0[:3, 3], SEM_ROOM,
+                             _default_boxes(SEM_ROOM))
+    res = dict(frames=n, keyframe_frames=[0] + kf, statuses_ok=sum(
+        s["status"] == "OK" for s in tr.stats), pose_gap_m=float(np.abs(
+            sys_T - np.stack(plain_T)).max()), position_gap_m=float(np.abs(
+            tr.camera_positions() - tracker.camera_positions()).max()),
+        ate_m=evaluate_ate_xyz(tr.camera_positions(), scene["poses"][:, :3, 3]).rmse,
+        blocks=len(sys_.grid.blocks), occupied=len(centers),
+        near_surface_share=float((dist <= DENSE_SURFACE_TOL).mean()),
+        surface_distance_median_m=float(np.median(dist)) if len(dist) else None,
+        dense_consumer_ms=dense_ms,
+        keyframe_frame_ms=[sys_ms[i] for i in kf],
+        keyframe_frame_ms_plain=[plain_ms[i] for i in kf],
+        median_keyframe_frame_ms=statistics.median(sys_ms[i] for i in kf),
+        median_keyframe_frame_ms_plain=statistics.median(plain_ms[i] for i in kf),
+        median_frame_ms=statistics.median(sys_ms[1:]),
+        median_frame_ms_plain=statistics.median(plain_ms[1:]))
+    # The CPU replays the keyframe payloads through the same consumers.
+    t = time.perf_counter()
+    cpu_sys = SlamSystem(cfg, enable_dense_map=True, device=cpu)
+    for rgb, depth, T_cw in sys_.payloads:
+        cpu_sys._on_new_keyframe(rgb, depth, T_cw)
+    res["cpu_replay_s"] = time.perf_counter() - t
+    gaps = [_grid_gaps(sys_.grid.blocks[k], cpu_sys.grid.blocks[k])
+            for k in cpu_sys.grid.blocks if k in sys_.grid.blocks]
+    res["replay"] = dict(blocks_equal=list(sys_.grid.blocks) == list(cpu_sys.grid.blocks),
+                         touched=sum(g["touched"] for g in gaps),
+                         flips=sum(g["flips"] for g in gaps),
+                         color_gap=max(g["color_gap"] for g in gaps),
+                         n_color_gap=max(g["n_color_gap"] for g in gaps))
+    # The occupancy file: saved, loaded back.
+    octo = str(work / "octomap.npz")
+    before = np.sort(centers, axis=0)
+    sys_.save_octomap(octo)
+    sys_.load_octomap(octo)
+    after = np.sort(sys_.grid.occupied_centers()[0], axis=0)
+    res["octomap_gap_m"] = float(np.abs(after - before).max()) if after.shape == before.shape \
+        else float("inf")
+    # Localization on a loaded map.
+    loc = SlamSystem(cfg, device=dev)
+    loc.load_map(map_path)
+    loc.activate_localization_mode()
+    for k in ("last_T_cw", "last_frame", "last_kp_point", "velocity"):
+        setattr(loc.tracker, k, snap[k])
+    loc_n0 = loc.tracker._n_kfs
+    for i in range(split, n):
+        loc.track_rgbd(*frames[i])
+    res["localization"] = dict(keyframes_loaded=loc_n0, keyframes_saved=snap["n_kfs"],
+                               keyframes_after=loc.tracker._n_kfs,
+                               statuses=[s["status"] for s in loc.tracker.stats])
+    # One keyframe's dense consumer under the profiler, on a fresh map that
+    # has taken the same payload once (its blocks allocated).
+    rgb, depth, T_cw = sys_.payloads[-1]
+    depth_m = depth_metres(torch.from_numpy(depth).to(dev))
+    prof = SlamSystem(cfg, enable_dense_map=True, device=dev)
+    prof._insert_keyframe_cloud(rgb, depth_m, T_cw)
+    res["keyframe_profile"] = _profile_call(
+        lambda: prof._insert_keyframe_cloud(rgb, depth_m, T_cw), dev, prefix="dense.")
+    res["blocks_per_keyframe"] = len(prof.grid.blocks)
+    _log("11b SlamSystem with semantics and the dense map: " + json.dumps(res) + f"; limits: "
+         f">= {DENSE_SURFACE_SHARE} of the occupied centres within {DENSE_SURFACE_TOL} m of a "
+         f"surface, > {DENSE_MIN_OCCUPIED} occupied, flips {DENSE_FLIP_SHARE}; card: {card}")
+    if res["statuses_ok"] != n:
+        raise AssertionError(f"11b: {n - res['statuses_ok']} frames not OK")
+    if kf != kf_plain or res["pose_gap_m"] != 0.0 or res["position_gap_m"] != 0.0:
+        raise AssertionError(f"11b: the dense map changed tracking: keyframes {kf} against "
+                             f"{kf_plain}, poses {res['pose_gap_m']} m apart")
+    if not (res["occupied"] > DENSE_MIN_OCCUPIED
+            and res["near_surface_share"] >= DENSE_SURFACE_SHARE):
+        raise AssertionError(f"11b: {res['occupied']} occupied voxels, "
+                             f"{res['near_surface_share']:.3f} near a surface")
+    if not res["replay"]["blocks_equal"]:
+        raise AssertionError("11b: the CPU replay allocated other blocks")
+    _check_gaps("11b replay", res["replay"])
+    if not res["octomap_gap_m"] <= OCTO_TOL:
+        raise AssertionError(f"11b: the octomap round trip moved centres {res['octomap_gap_m']}")
+    lz = res["localization"]
+    if lz["keyframes_after"] != lz["keyframes_loaded"] or lz["keyframes_loaded"] != \
+            lz["keyframes_saved"] or "LOST" in lz["statuses"]:
+        raise AssertionError(f"11b: localization on the loaded map: {lz}")
+    res.update(payloads=sys_.payloads, payload_frames=sys_.frames)
+    return res
+
+
+def check_batched_consume(dev, scene: dict, params: dict, dense_res: dict,
+                          cam: CameraConfig, card: str) -> dict:
+    """11c: `make_batched_consume` on 11b's keyframe payloads against the
+    engine path (`SlamSystem._on_new_keyframe` into a dense 0.1 m grid) on
+    the same payloads, with JAX's rules (`tests/test_semantic.py`): the
+    same object count, every batched centroid within 0.10 m of an engine
+    one, at most 2% of the touched voxels differing. The score gates are 0
+    so the seeded weights' boxes reach fusion; the engine detects its queue
+    in one bf16 batch, as the consumer does (the seeded scores crowd within
+    1e-7 of each other: bf16 against f32 would compare two draws of that
+    noise)."""
+    payloads, frames = dense_res["payloads"], dense_res["payload_frames"]
+    base = SlamConfig(camera=cam)
+    cfg = base.replace(
+        semantic=dataclasses.replace(base.semantic, det_score_threshold=0.0,
+                                     fusion_prob_threshold=0.0),
+        dense=dataclasses.replace(_consume_dense(base.dense), unbounded=False))
+    engine = SlamSystem(cfg, enable_semantics=True, enable_dense_map=True,
+                        detector_params=params, device=dev)
+    engine._det_batch = len(payloads)
+    with highest_precision():
+        for rgb, depth, T_cw in payloads:
+            engine._on_new_keyframe(rgb, depth, T_cw)
+    consume, _ = make_batched_consume(cfg, frames, np.arange(len(frames)),
+                                      detector=engine.detector, device=dev, **CONSUME_GRID)
+    T_all = torch.from_numpy(np.stack([p[2] for p in payloads])).to(dev)
+    lo0 = torch.zeros_like(engine.grid.log_odds)
+
+    def run():
+        return consume(scene["grays"], scene["depths"], T_all, lo0,
+                       torch.Generator().manual_seed(0))
+
+    lo, nd, db = run()
+    v_e, v_b = engine.object_db.valid.cpu().numpy(), db.valid.cpu().numpy()
+    ce, cb = engine.object_db.centroid.cpu().numpy()[v_e], db.centroid.cpu().numpy()[v_b]
+    lo_e, lo_b = engine.grid.log_odds.cpu().numpy(), lo.cpu().numpy()
+    touched = int(((lo_e != 0) | (lo_b != 0)).sum())
+    res = dict(keyframes=len(frames), objects_engine=int(v_e.sum()), objects_batched=int(v_b.sum()),
+               detections=nd.cpu().tolist(),
+               centroid_gap_m=max((float(np.linalg.norm(ce - c[None], axis=-1).min())
+                                   for c in cb), default=0.0) if len(ce) else None,
+               touched=touched, differing=int((np.abs(lo_e - lo_b) > 1e-4).sum()),
+               consume_ms=_sync_ms(run, dev, 3))
+    _log("11c batched consumer against the engine path: " + json.dumps(res) + "; limits: equal "
+         f"object counts, centroids {CONSUME_CENTROID_TOL} m, {CONSUME_VOXEL_SHARE} of the touched "
+         f"voxels; card: {card}")
+    if not (res["objects_engine"] == res["objects_batched"] > 0
+            and res["centroid_gap_m"] < CONSUME_CENTROID_TOL):
+        raise AssertionError(f"11c: the batched consumer's objects differ: {res}")
+    if not (touched > 5000 and res["differing"] <= CONSUME_VOXEL_SHARE * touched):
+        raise AssertionError(f"11c: the batched consumer's map differs: {res}")
+    return res
+
+
+def run_stereo(dev, scene: dict, cam: CameraConfig, card: str) -> dict:
+    """11d: `track_stereo` on phase 10's first STEREO_FRAMES views and
+    right views rendered on the card at the left pose shifted along the
+    camera's x by the baseline bf / fx: no frame LOST, two extractions a
+    frame, ATE under STEREO_ATE_FACTOR times the CPU rehearsal's."""
+    n = STEREO_FRAMES
+    poses = scene["poses"][:n]
+    shift = np.eye(4, dtype=np.float32)
+    shift[0, 3] = cam.bf / cam.fx
+    (right, _), render_ms = _timed(lambda: device_render.render_frames(
+        poses @ shift, cam, size=SEM_ROOM, seed=SEM_SEED, box_gray=scene["box_gray"],
+        device=dev), dev)
+    left, right = scene["gray_host"][:n], right.cpu().numpy()
+    sys_ = SlamSystem(SlamConfig(camera=cam), device=dev)
+    with _CountingExtract() as count:
+        ms = [_timed(lambda: sys_.track_stereo(left[i], right[i], i / 30.0), dev)[1]
+              for i in range(n)]
+    statuses = [s["status"] for s in sys_.tracker.stats]
+    res = dict(frames=n, extractions=count.calls, statuses=statuses,
+               keyframes=sys_.tracker._n_kfs,
+               ate_m=evaluate_ate_xyz(sys_.tracker.camera_positions(), poses[:, :3, 3]).rmse,
+               median_frame_ms=statistics.median(ms[1:]), render_ms_per_view=render_ms / n)
+    _log("11d track_stereo: " + json.dumps(res) + f"; limits: ATE < {STEREO_ATE_FACTOR} x "
+         f"{STEREO_CPU_ATE} m (the CPU rehearsal), 2 extractions a frame; card: {card}")
+    if "LOST" in statuses or count.calls != 2 * n:
+        raise AssertionError(f"11d: statuses {statuses}, {count.calls} extractions for {n} pairs")
+    if not res["ate_m"] < STEREO_ATE_FACTOR * STEREO_CPU_ATE:
+        raise AssertionError(f"11d: ATE {res['ate_m']:.5f} m")
+    return res
+
+
+def run_monocular(dev, scene: dict, cam: CameraConfig, card: str) -> dict:
+    """11e: `track_monocular` on phase 10's first MONO_FRAMES gray views:
+    initialized, at least 2 keyframes, finite poses, the camera moved, and
+    the initializer's (1024, 1024) search at r = 100 went through B1."""
+    n = MONO_FRAMES
+    sys_ = SlamSystem(SlamConfig(camera=cam), device=dev)
+    K = sys_.cfg.orb.max_keypoints
+    with _B1Shapes() as b1:
+        runs = [_timed(lambda: sys_.track_monocular(
+            scene["gray_host"][i].astype(np.float32), i / 30.0), dev) for i in range(n)]
+    T = np.stack([T for T, _ in runs])
+    res = dict(frames=n, initialized=sys_.tracker.initialized, keyframes=sys_.tracker._n_kfs,
+               tracked_frames=len(sys_.tracker.stats), finite=bool(np.isfinite(T).all()),
+               moved=float(np.linalg.norm(T[-1][:3, 3])),
+               statuses=[s["status"] for s in sys_.tracker.stats],
+               init_searches=sum(s == (K, K, 100.0) for s in b1.seen),
+               median_frame_ms=statistics.median(ms for _, ms in runs[1:]))
+    _log("11e track_monocular: " + json.dumps(res) + f"; card: {card}")
+    if not (res["initialized"] and res["keyframes"] >= 2 and res["finite"]
+            and res["moved"] > 1e-3):
+        raise AssertionError(f"11e: monocular tracking failed: {res}")
+    if dev.type == "cuda" and res["init_searches"] == 0:
+        raise AssertionError(f"11e: the initializer's ({K}, {K}) r = 100 search never reached "
+                             f"B1: {sorted(set(b1.seen))}")
+    return res
+
+
+def run_dense_path(dev, card: str, scene: dict, params: dict,
+                   cam: CameraConfig | None = None) -> dict:
+    """Phase 11 on phase 10's scene (rendered on the card); the launch
+    counters are zeroed before and read after."""
+    cam = cam or CameraConfig()
+    work = Path(__file__).resolve().parent / "build" / "dense_check"
+    work.mkdir(parents=True, exist_ok=True)
+    t11 = time.perf_counter()
+    _reset_counts()
+    times = {}
+    t = time.perf_counter()
+    funcs = check_dense_functions(dev, scene, cam, card)
+    times["11a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    system = run_dense_system(dev, scene, params, cam, card, work)
+    times["11b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    batched = check_batched_consume(dev, scene, params, system, cam, card)
+    times["11c"] = time.perf_counter() - t
+    for k in ("payloads", "payload_frames"):
+        system.pop(k)
+    t = time.perf_counter()
+    stereo = run_stereo(dev, scene, cam, card)
+    times["11d"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mono = run_monocular(dev, scene, cam, card)
+    times["11e"] = time.perf_counter() - t
+    counts = _counts()
+    phase_s = time.perf_counter() - t11
+    _log(f"phase 11 took {phase_s:.1f} s ({json.dumps(times)}), launches {json.dumps(counts)}; "
+         f"card: {card}")
+    if dev.type == "cuda" and counts["window_match"] == 0:
+        raise AssertionError("11: the dense, stereo and monocular runs never launched the "
+                             "window matcher")
+    return dict(functions=funcs, system=system, batched=batched, stereo=stereo, mono=mono,
+                launches=counts, phase_s=phase_s, times=times)
 
 
 def host_times(dev) -> dict:
@@ -2452,7 +2989,19 @@ def main() -> int:
     floor_ms = launch_floor_ms()
     b1 = check_b1(dev)
     b2 = check_b2(dev)
-    main_res = run_main_path(dev)
+    # Phases 4-8's views render on the CPU while phases 9-11, which render
+    # on the card, run; then phases 4-8 run on them.
+    job = start_render(N_FRAMES, LOOP_SEQ_FRAMES, SEG_FRAMES)
+    try:
+        dyn = run_dynamic_path(dev, card)
+        sem = run_semantic_path(dev, card)
+        dense = run_dense_path(dev, card, sem.pop("scene"), sem.pop("params"))
+    except BaseException:
+        job["pool"].terminate()
+        job["pool"].join()
+        raise
+    rendered = finish_render(job)
+    main_res = run_main_path(dev, rendered=rendered)
     tracker = main_res.pop("tracker")
     b2_path = run_b2_path(tracker, dev)
     rendered = main_res.pop("rendered")
@@ -2462,8 +3011,6 @@ def main() -> int:
     scan = run_scan_path(dev, main_res | {"tracker": tracker, "rendered": rendered}, card)
     seg = run_segmented_path(dev, rendered[4], card)
     _log(f"phase 8 took {time.perf_counter() - t8:.1f} s; card: {card}")
-    dyn = run_dynamic_path(dev, card)
-    sem = run_semantic_path(dev, card)
     kernels = [
         dict(name="window_match", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/window_match.cu",
@@ -2480,6 +3027,7 @@ def main() -> int:
              launches_segmented=seg["launches"]["window_match"],
              launches_dynamic=dyn["launches"]["window_match"],
              launches_semantic=sem["launches"]["window_match"],
+             launches_dense=dense["launches"]["window_match"], init_shape=b1["init_shape"],
              path="Tracker.process, default config"),
         dict(name="spd_solve", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/spd_solve.cu",
@@ -2494,6 +3042,7 @@ def main() -> int:
              launches_segmented=seg["launches"]["spd_solve"],
              launches_dynamic=dyn["launches"]["spd_solve"],
              launches_semantic=sem["launches"]["spd_solve"],
+             launches_dense=dense["launches"]["spd_solve"],
              path="local_mapping_step, window 12 + 8"),
     ]
     _log(f"summary: build {build_s:.2f} s, main path median {main_res['median_frame_ms']:.2f} "
@@ -2517,7 +3066,12 @@ def main() -> int:
          f"{sem['network']['bf16_forward_ms_batch']:.2f} ms; a frame with semantics "
          f"{sem['system']['median_frame_ms']:.2f} ms (without "
          f"{sem['system']['median_frame_ms_plain']:.2f}); phase 10 {sem['phase_s']:.1f} s; "
-         f"card: {card}")
+         f"a block insertion {dense['functions']['block_64']['ms']:.2f} ms, a keyframe's frame "
+         f"with the dense map {dense['system']['median_keyframe_frame_ms']:.2f} ms (without "
+         f"{dense['system']['median_keyframe_frame_ms_plain']:.2f}), the batched consumer "
+         f"{dense['batched']['consume_ms']:.2f} ms for {dense['batched']['keyframes']} "
+         f"keyframes, stereo ATE {dense['stereo']['ate_m']:.4f} m; phase 11 "
+         f"{dense['phase_s']:.1f} s; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -26,7 +26,7 @@ from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig, DynamicConfig
 from orb_slam2_ssd_semantic_tpu_torch.geometry import camera as cam_ops
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
 from orb_slam2_ssd_semantic_tpu_torch.ops import image as image_ops
-from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import top_k
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import last_write_wins, top_k
 
 
 @dataclasses.dataclass
@@ -64,24 +64,6 @@ def insert_ref_view(db: GeomRefViews, T_cw, uv, depth, kp_valid) -> GeomRefViews
     return GeomRefViews(
         T_cw=put(db.T_cw, T_cw), uv=put(db.uv, uv), depth=put(db.depth, depth),
         kp_valid=put(db.kp_valid, kp_valid), valid=db.valid | at, cursor=db.cursor + 1)
-
-
-def _last_write_wins(flat_idx: torch.Tensor, keep: torch.Tensor, values: torch.Tensor,
-                     n: int):
-    """Scatter `values` into n targets where `keep` (an index outside
-    [0, n) is dropped), the update with the largest position winning
-    among those aimed at one target. Returns
-    ((n,) f32 values, 0 where nothing landed; (n,) bool hit). XLA's CPU
-    scatter lets the last write win; this makes that rule explicit and
-    independent of the order in which the device applies the writes."""
-    pos = torch.arange(flat_idx.shape[0], device=flat_idx.device)
-    keep = keep & (flat_idx >= 0) & (flat_idx < n)
-    tgt = torch.where(keep, flat_idx, torch.full_like(flat_idx, n))
-    winner = torch.full((n + 1,), -1, dtype=torch.int64, device=flat_idx.device)
-    winner = winner.scatter_reduce(0, tgt, pos, reduce="amax", include_self=True)[:n]
-    hit = winner >= 0
-    got = values[winner.clamp(min=0)]
-    return torch.where(hit, got, torch.zeros_like(got)), hit
 
 
 def geometry_dynamic_mask(db: GeomRefViews, T_cw: torch.Tensor, depth_img: torch.Tensor,
@@ -150,7 +132,7 @@ def geometry_dynamic_mask(db: GeomRefViews, T_cw: torch.Tensor, depth_img: torch
     dyn = dynamic_pt.reshape(-1)
     xi = torch.round(uv_c[..., 0]).to(torch.int64).clamp(0, w - 1).reshape(-1)
     yi = torch.round(uv_c[..., 1]).to(torch.int64).clamp(0, h - 1).reshape(-1)
-    ref_d, seeds = _last_write_wins(yi * w + xi, dyn, d_meas.reshape(-1), h * w)
+    ref_d, seeds = last_write_wins(yi * w + xi, dyn, d_meas.reshape(-1), h * w)
     ref_d, seeds = ref_d.reshape(h, w), seeds.reshape(h, w)
 
     # Per iteration: a 3x3 dilation of (mask, reference depth); a neighbour

@@ -278,3 +278,10 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
         torch.where(use_x[..., None], qx, torch.where(use_y[..., None], qy, qz)),
     )
     return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-32)
+
+
+def is_rotation_matrix(R: torch.Tensor, tol: float = 1e-4) -> torch.Tensor:
+    """Orthonormality check (reference: Geometry.cc:555 assert): the
+    Frobenius norm of R Rᵀ - I under `tol`."""
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    return torch.linalg.norm(R @ R.transpose(-1, -2) - eye, dim=(-2, -1)) < tol

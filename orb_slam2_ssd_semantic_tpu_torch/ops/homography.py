@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import valid_rows
+
 
 def _safe_div_h22(H: torch.Tensor) -> torch.Tensor:
     h22 = H[..., 2:3, 2:3]
@@ -68,22 +70,13 @@ def _normalize(pts: torch.Tensor, valid: torch.Tensor):
 
 
 def sample_minimal_sets(valid: torch.Tensor, n_hypotheses: int = 128,
-                        seed: int = 0) -> torch.Tensor:
-    """(S, 4) int64 row indices, uniform over the rows where `valid` is
-    set, with replacement. The uniforms come from a CPU generator seeded
-    `seed` (the same on every device); the r-th valid row is found on the
-    device from the running count, so `valid` is never fetched. With no
-    valid row every index is 0."""
+                        seed: int = 0, size: int = 4) -> torch.Tensor:
+    """(S, size) int64 row indices, uniform over the rows where `valid` is
+    set, with replacement, from a CPU generator seeded `seed`
+    (`tensor_ops.valid_rows`). With no valid row every index is the last
+    row."""
     gen = torch.Generator().manual_seed(seed)
-    u = torch.rand((n_hypotheses, 4), generator=gen, dtype=torch.float32)
-    if valid.is_cuda:
-        u = u.pin_memory().to(valid.device, non_blocking=True)
-    cnt = torch.cumsum(valid.to(torch.int64), dim=0)
-    n = cnt[-1]
-    rank = torch.clamp(torch.floor(u * n.to(torch.float32)).to(torch.int64),
-                       max=torch.clamp(n - 1, min=0))
-    idx = torch.searchsorted(cnt, (rank + 1).reshape(-1)).reshape(rank.shape)
-    return torch.clamp(idx, max=valid.shape[0] - 1)
+    return valid_rows(torch.rand((n_hypotheses, size), generator=gen, dtype=torch.float32), valid)
 
 
 def find_homography_ransac(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,

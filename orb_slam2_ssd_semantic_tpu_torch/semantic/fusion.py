@@ -30,16 +30,13 @@ import torch
 from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig, SemanticConfig
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
 from orb_slam2_ssd_semantic_tpu_torch.semantic.detector import Detections
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import f32_reciprocal
 
 
 def _grid(h: int, w: int, device):
     ys = torch.arange(h, dtype=torch.float32, device=device)[:, None]
     xs = torch.arange(w, dtype=torch.float32, device=device)[None, :]
     return ys, xs
-
-
-def _recip(v: float) -> float:
-    return float(np.float32(1.0) / np.float32(v))
 
 
 def _camera_cloud(depth_img: torch.Tensor, cam: CameraConfig) -> torch.Tensor:
@@ -49,8 +46,8 @@ def _camera_cloud(depth_img: torch.Tensor, cam: CameraConfig) -> torch.Tensor:
     h, w = depth_img.shape
     ys, xs = _grid(h, w, depth_img.device)
     zc = depth_img
-    xc = (xs - cam.cx) * _recip(cam.fx) * zc
-    yc = (ys - cam.cy) * _recip(cam.fy) * zc
+    xc = (xs - cam.cx) * f32_reciprocal(cam.fx) * zc
+    yc = (ys - cam.cy) * f32_reciprocal(cam.fy) * zc
     return torch.stack([xc, yc, zc], -1)  # (H, W, 3)
 
 

@@ -1,45 +1,44 @@
 """System facade: the engine's public API (counterpart of the JAX package's
 `system.py`; the reference's System class, perfect/include/System.h:61-131).
 
-Ported: per-frame `track_rgbd` with the semantic keyframe consumers
-(detection, 2D-to-3D fusion, the object database), the mode switches,
-reset, the trajectory writers and the object listing and persistence.
-Refused with NotImplementedError until their slice is ported: the dense
-occupancy map (`enable_dense_map`, `save_octomap`, `load_octomap`), the
-stereo and monocular front ends, map persistence (`save_map`,
-`load_map`) and a device `mesh`.
+Ported: per-frame `track_rgbd` with the keyframe consumers (detection,
+2D-to-3D fusion and the object database with `enable_semantics`; the
+occupancy map with `enable_dense_map`: the ground split and the raycast
+insertion into a `BlockGridMap`, or one dense grid when
+`cfg.dense.unbounded` is off), the stereo and monocular front ends
+(`track_stereo`, `track_monocular`), the mode switches, reset, the
+trajectory writers, the object listing and persistence, and the
+persistence of the sparse map (`save_map`, `load_map`) and of the
+occupancy map (`save_octomap`, `load_octomap`), in files that load in
+either package. Refused with NotImplementedError: a device `mesh` (the
+multi-device code is a later slice).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from orb_slam2_ssd_semantic_tpu_torch import device as device_mod
 from orb_slam2_ssd_semantic_tpu_torch.config import SlamConfig
 from orb_slam2_ssd_semantic_tpu_torch.utils import precision
 
-_DENSE = ("dense mapping (dense/pointcloud.py, dense/occupancy.py) is not ported yet; it is the "
-          "next slice")
-_SENSORS = ("the stereo and monocular front ends (ops/stereo.py, mapping/initializer.py) are "
-            "not ported yet; they come with the dense-mapping slice")
-_MAP_IO = "map persistence (io/map_io.py) is not ported yet; it comes with the dense-mapping slice"
 _MESH = "the multi-device code (parallel/) is not ported yet; it is a later slice"
 
 
 class SlamSystem:
-    """Tracking every frame; detection, fusion and the object database on
-    each new keyframe (`enable_semantics`). `device=None` runs on the card
-    (raises without one). `detector_params`: an `SSDLite` state_dict for
-    the detector (default: the trained checkpoint, else seeded weights
-    with a warning)."""
+    """Tracking every frame; on each new keyframe detection, fusion and the
+    object database (`enable_semantics`) and occupancy insertion
+    (`enable_dense_map`). `device=None` runs on the card (raises without
+    one). `detector_params`: an `SSDLite` state_dict for the detector
+    (default: the trained checkpoint, else seeded weights with a
+    warning)."""
 
     def __init__(self, cfg: SlamConfig | None = None, enable_semantics: bool = False,
                  enable_dense_map: bool = False, detector_params=None, mesh=None, device=None):
         from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
 
-        if enable_dense_map:
-            raise NotImplementedError(_DENSE)
         if mesh is not None:
             raise NotImplementedError(_MESH)
         self.cfg = cfg or SlamConfig()
@@ -61,6 +60,26 @@ class SlamSystem:
             self.detector = Detector(self.cfg.semantic, params=detector_params,
                                      device=self.device)
             self.object_db = empty_db(self.cfg.semantic.max_objects, self.device)
+        self._enable_dense_map = enable_dense_map
+        self._build_grid()
+        self._mono_seed = None
+
+    def _build_grid(self):
+        """(Re)create the occupancy map: at construction and on reset (the
+        reference clears the octomap with the map, MapDrawer.cc:381-386).
+        The ground split's hypotheses come from a CPU generator seeded 0,
+        made anew with the map (JAX: `PRNGKey(0)` split per keyframe)."""
+        self.grid = None
+        self._ground_gen = torch.Generator().manual_seed(0)
+        if not self._enable_dense_map:
+            return
+        from orb_slam2_ssd_semantic_tpu_torch.dense.occupancy import BlockGridMap, empty_grid
+
+        dense = self.cfg.dense
+        if dense.unbounded:
+            self.grid = BlockGridMap(dense, block_voxels=dense.block_voxels, device=self.device)
+        else:
+            self.grid = empty_grid(resolution=dense.resolution, device=self.device)
 
     def _to_device(self, a) -> torch.Tensor:
         if torch.is_tensor(a):
@@ -89,11 +108,94 @@ class SlamSystem:
             self._on_new_keyframe(rgb, depth, T_cw)
         return T_cw
 
-    def track_stereo(self, left, right, stamp: float):
-        raise NotImplementedError(_SENSORS)
+    @precision.scoped
+    def track_stereo(self, left: np.ndarray, right: np.ndarray, stamp: float) -> np.ndarray:
+        """TrackStereo (System.cc; the reference extracts both images in
+        two threads, Frame.cc:196-197, and matches them in the Frame ctor).
+        Each rectified image is extracted ONCE; the row-band matcher
+        (`ops/stereo.py`) gives the left keypoints depths, scattered into a
+        sparse depth image at their (undistorted, rounded) pixels
+        (`stereo.sparse_depth_image`: on a shared pixel the later keypoint
+        wins), and the left features go on to the RGB-D path with it."""
+        from orb_slam2_ssd_semantic_tpu_torch.frontend import extractor
+        from orb_slam2_ssd_semantic_tpu_torch.geometry import camera as cam_ops
+        from orb_slam2_ssd_semantic_tpu_torch.io.tum import rgb_to_gray
+        from orb_slam2_ssd_semantic_tpu_torch.ops.stereo import sparse_depth_image, stereo_match
 
-    def track_monocular(self, rgb, stamp: float):
-        raise NotImplementedError(_SENSORS)
+        cam, orb = self.cfg.camera, self.cfg.orb
+        gl = rgb_to_gray(left) if left.ndim == 3 else left
+        gr = rgb_to_gray(right) if right.ndim == 3 else right
+        fl = extractor.extract(self._to_device(gl).to(torch.float32), orb)
+        fr = extractor.extract(self._to_device(gr).to(torch.float32), orb)
+        depth, _, ok = stereo_match(fl, fr, cam, orb)
+        # At the undistorted pixels, which the RGB-D frame samples again.
+        d = sparse_depth_image(cam_ops.undistort_points(fl.uv, cam), depth, ok, cam)
+        return self.track_rgbd(gl, d.cpu().numpy(), stamp, feats=fl)
+
+    @precision.scoped
+    def track_monocular(self, rgb: np.ndarray, stamp: float) -> np.ndarray:
+        """TrackMonocular (System.cc). Before initialization, frames go to
+        the two-view initializer (`mapping/initializer.py`) against the
+        held seed frame; on success the triangulated structure, scaled to
+        a median depth of 1 (CreateInitialMapMonocular), seeds the two
+        keyframes through sparse depth images. Afterwards frames track
+        without depth: monocular observations, new points only by
+        local-mapping triangulation."""
+        from orb_slam2_ssd_semantic_tpu_torch.io.tum import rgb_to_gray
+
+        gray = rgb_to_gray(rgb) if rgb.ndim == 3 else rgb
+        if self.tracker.initialized:
+            return self.track_rgbd(gray, np.zeros(gray.shape, np.float32), stamp)
+        return self._mono_initialize(gray, stamp)
+
+    def _mono_initialize(self, gray: np.ndarray, stamp: float) -> np.ndarray:
+        from orb_slam2_ssd_semantic_tpu_torch.frontend import extractor
+        from orb_slam2_ssd_semantic_tpu_torch.mapping.initializer import initialize_monocular
+        from orb_slam2_ssd_semantic_tpu_torch.ops import match as match_ops
+
+        cam = self.cfg.camera
+        feats = extractor.extract(self._to_device(gray).to(torch.float32), self.cfg.orb)
+        if self._mono_seed is None:
+            self._mono_seed = (gray, stamp, feats)
+            return np.eye(4, dtype=np.float32)
+        g0, t0, f0 = self._mono_seed
+        # Wide-window 2D-2D match (SearchForInitialization, radius 100).
+        m = match_ops.match_by_window(f0.desc, feats.desc, f0.uv, feats.uv, f0.valid,
+                                      feats.valid, radius=100.0, angle_q=f0.angle,
+                                      angle_t=feats.angle, max_dist=match_ops.TH_LOW)
+        tgt = m.idx.clamp(0, feats.uv.shape[0] - 1)
+        out = initialize_monocular(f0.uv, feats.uv[tgt], m.valid, cam)
+        if not out["success"]:
+            # The newest frame becomes the seed (the reference resets its
+            # initializer when matching fails).
+            self._mono_seed = (gray, stamp, feats)
+            return np.eye(4, dtype=np.float32)
+        X = out["pts3d"].cpu().numpy()
+        good = out["good"].cpu().numpy()
+        med = max(float(np.median(X[good][:, 2])) if good.any() else 1.0, 1e-6)
+        X = X / med
+        T1 = np.eye(4, dtype=np.float32)
+        T1[:3, :3] = out["R"].cpu().numpy()
+        T1[:3, 3] = out["t"].cpu().numpy() / med
+        # Both views seed keyframes through the RGB-D path, with sparse
+        # depth images of the triangulated structure.
+        self.track_rgbd(g0, self._sparse_depth(f0.uv.cpu().numpy(), X[:, 2], good, cam), t0)
+        z1 = (X @ T1[:3, :3].T + T1[:3, 3])[:, 2]
+        uv1 = feats.uv[tgt].cpu().numpy()
+        d1 = self._sparse_depth(uv1, z1, good & m.valid.cpu().numpy(), cam)
+        self.tracker.frames_since_kf = 10 ** 6  # both initial views are keyframes
+        T = self.track_rgbd(gray, d1, stamp)
+        self._mono_seed = None
+        return T
+
+    @staticmethod
+    def _sparse_depth(uv: np.ndarray, z: np.ndarray, ok: np.ndarray, cam) -> np.ndarray:
+        img = np.zeros((cam.height, cam.width), np.float32)
+        x = np.round(uv[:, 0]).astype(int)
+        y = np.round(uv[:, 1]).astype(int)
+        keep = ok & (z > 0.05) & (x >= 0) & (x < cam.width) & (y >= 0) & (y < cam.height)
+        img[y[keep], x[keep]] = z[keep]
+        return img
 
     @precision.scoped
     def flush_detections(self):
@@ -119,20 +221,45 @@ class SlamSystem:
 
     def _on_new_keyframe(self, rgb, depth, T_cw):
         """Keyframe consumers: detection and semantic fusion (the
-        RunDetect/ObjectDatabase path). The occupancy half waits for dense
-        mapping."""
+        RunDetect/ObjectDatabase path) and occupancy insertion
+        (MapDrawer::UpdateOctomap): the keyframe's cloud with gray colors,
+        the ground split (ground rays only carve) and the raycast from the
+        camera centre."""
         from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import depth_metres
 
-        if self.detector is None:
-            return
-        rgb3 = self._to_device(rgb)
-        if rgb3.ndim == 2:
-            rgb3 = rgb3[..., None].expand(*rgb3.shape, 3)
-        self._det_queue.append((rgb3.to(torch.uint8),
-                                depth_metres(self._to_device(depth)),
-                                self._to_device(np.asarray(T_cw, np.float32))))
-        if len(self._det_queue) >= self._det_batch:
-            self.flush_detections()
+        depth_m = depth_metres(self._to_device(depth))
+        T_cw = np.asarray(T_cw, np.float32)
+        if self.detector is not None:
+            rgb3 = self._to_device(rgb)
+            if rgb3.ndim == 2:
+                rgb3 = rgb3[..., None].expand(*rgb3.shape, 3)
+            self._det_queue.append((rgb3.to(torch.uint8), depth_m, self._to_device(T_cw)))
+            if len(self._det_queue) >= self._det_batch:
+                self.flush_detections()
+        if self.grid is not None:
+            self._insert_keyframe_cloud(rgb, depth_m, T_cw)
+
+    def _insert_keyframe_cloud(self, rgb, depth_m: torch.Tensor, T_cw: np.ndarray):
+        from orb_slam2_ssd_semantic_tpu_torch.dense import pointcloud
+        from orb_slam2_ssd_semantic_tpu_torch.dense.occupancy import BlockGridMap, insert_scan
+
+        dense = self.cfg.dense
+        with record_function("dense.cloud"):
+            pts, valid, colors = pointcloud.keyframe_cloud(
+                depth_m, self._to_device(T_cw), self.cfg.camera, dense,
+                gray_img=self._to_device(rgb_to_gray_np(rgb)))
+        with record_function("dense.ground"):
+            idx = pointcloud.sample_ground_hypotheses(valid, dense.ground_ransac_iters,
+                                                      self._ground_gen)
+            is_ground, _ = pointcloud.split_ground(pts, valid, idx, 1, dense)
+        # The camera centre from the host's f32 inverse, as JAX takes it.
+        origin = self._to_device(np.linalg.inv(T_cw)[:3, 3])
+        with record_function("dense.insert"):
+            if isinstance(self.grid, BlockGridMap):
+                self.grid.insert_scan(origin, pts, valid, colors=colors, carve_only=is_ground)
+            else:
+                self.grid = insert_scan(self.grid, origin, pts, valid, colors=colors,
+                                        carve_only=is_ground, cfg=dense)
 
     # ---- mode switches (System.cc:389-421) --------------------------------
 
@@ -145,11 +272,14 @@ class SlamSystem:
 
     def reset(self):
         """System::Reset (System.cc:417, Tracking.cc:3069): a new tracker,
-        an empty detection queue and object database."""
+        an empty occupancy map (MapDrawer.cc:381-386), detection queue and
+        object database."""
         from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
 
         self.tracker = Tracker(self.cfg, device=self.device)
+        self._build_grid()
         self._det_queue = []
+        self._mono_seed = None
         if self.object_db is not None:
             from orb_slam2_ssd_semantic_tpu_torch.semantic.object_db import empty_db
 
@@ -194,16 +324,39 @@ class SlamSystem:
         write_trajectory_kitti(path, [np.linalg.inv(T) for _, T in self.tracker.absolute_poses()])
 
     def save_map(self, path: str):
-        raise NotImplementedError(_MAP_IO)
+        from orb_slam2_ssd_semantic_tpu_torch.io.map_io import save_map
+
+        save_map(path, self.tracker.state)
 
     def load_map(self, path: str):
-        raise NotImplementedError(_MAP_IO)
+        """Load a saved sparse map into the tracker (tracking resumes
+        against it, e.g. in localization mode)."""
+        from orb_slam2_ssd_semantic_tpu_torch.io.map_io import load_map
+
+        self.tracker.state = load_map(path, self.cfg, self.device)
+        self.tracker.initialized = True
+        self.tracker._on_keyframe_inserted()
 
     def save_octomap(self, path: str):
-        raise NotImplementedError(_DENSE)
+        from orb_slam2_ssd_semantic_tpu_torch.dense.occupancy import BlockGridMap, save_grid
+
+        if self.grid is None:
+            raise RuntimeError("dense map not enabled")
+        if isinstance(self.grid, BlockGridMap):
+            self.grid.save(path)
+        else:
+            save_grid(path, self.grid, self.cfg.dense)
 
     def load_octomap(self, path: str):
-        raise NotImplementedError(_DENSE)
+        """A block map's or a dense grid's file, by its keys."""
+        from orb_slam2_ssd_semantic_tpu_torch.dense.occupancy import BlockGridMap, load_grid
+
+        with np.load(path) as z:
+            is_blocks = "block_keys" in z.files
+        if is_blocks:
+            self.grid = BlockGridMap.load(path, self.cfg.dense, self.device)
+        else:
+            self.grid = load_grid(path, self.device)
 
     def objects(self) -> list:
         from orb_slam2_ssd_semantic_tpu_torch.semantic.object_db import summarize
@@ -229,6 +382,13 @@ class SlamSystem:
         from orb_slam2_ssd_semantic_tpu_torch.semantic.object_db import load_db
 
         self.object_db = load_db(path, self.device)
+
+
+def rgb_to_gray_np(rgb: np.ndarray) -> np.ndarray:
+    """float32 gray of an (H, W, 3) image; a gray image as float32."""
+    from orb_slam2_ssd_semantic_tpu_torch.io.tum import rgb_to_gray
+
+    return rgb_to_gray(rgb) if rgb.ndim == 3 else np.asarray(rgb).astype(np.float32)
 
 
 # Reference-name alias: the reference's facade class is `System`.

@@ -14,10 +14,18 @@
 - `finite_matrices`: XLA's decompositions return NaN for a matrix holding
   NaN or Inf, where torch's (LAPACK, cuSOLVER) raise; a batched RANSAC
   meets such matrices in hypotheses from degenerate minimal sets.
+- `f32_reciprocal`: under `jit` XLA turns a division by a constant into a
+  product with the constant's f32 reciprocal; the port multiplies by it
+  where the last bits decide a bin or a voxel.
+- `valid_rows`: uniform draws over the rows a mask keeps, as
+  `jax.random.categorical` over logits of 0 and -1e9 draws them.
+- `last_write_wins`: XLA's CPU scatter with repeated indices, made
+  explicit and order-free.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -63,6 +71,27 @@ def scatter(t: torch.Tensor, idx, val, op: str = "set") -> torch.Tensor:
     return out
 
 
+def f32_reciprocal(v: float) -> float:
+    """The f32 reciprocal of `v`, as XLA folds a constant divisor."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
+def valid_rows(u: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """int64 indices (u's shape) of rows where `valid` is set: uniforms
+    `u` in [0, 1) from a CPU generator (the same draws on every device)
+    pick the r-th valid row, r = floor(u * n_valid), found on the device
+    from the running count, so `valid` is never fetched. With no valid
+    row every index is the last row."""
+    if valid.is_cuda:
+        u = u.pin_memory().to(valid.device, non_blocking=True)
+    cnt = torch.cumsum(valid.to(torch.int64), dim=0)
+    n = cnt[-1]
+    rank = torch.clamp(torch.floor(u * n.to(torch.float32)).to(torch.int64),
+                       max=torch.clamp(n - 1, min=0))
+    idx = torch.searchsorted(cnt, (rank + 1).reshape(-1)).reshape(rank.shape)
+    return torch.clamp(idx, max=valid.shape[0] - 1)
+
+
 def nanmedian(x: torch.Tensor) -> torch.Tensor:
     """Median of the non-NaN entries of `x` (all of it), averaging the two
     middle values of an even count as `jnp.nanmedian` does; NaN if every
@@ -82,3 +111,21 @@ def nan_where(ok: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """x with NaN in the batch entries where `ok` (x's leading dims) is False."""
     ok = ok.reshape(ok.shape + (1,) * (x.dim() - ok.dim()))
     return torch.where(ok, x, torch.full_like(x, float("nan")))
+
+
+def last_write_wins(flat_idx: torch.Tensor, keep: torch.Tensor, values: torch.Tensor,
+                     n: int):
+    """Scatter `values` into n targets where `keep` (an index outside
+    [0, n) is dropped), the update with the largest position winning
+    among those aimed at one target. Returns
+    ((n,) f32 values, 0 where nothing landed; (n,) bool hit). XLA's CPU
+    scatter lets the last write win; this makes that rule explicit and
+    independent of the order in which the device applies the writes."""
+    pos = torch.arange(flat_idx.shape[0], device=flat_idx.device)
+    keep = keep & (flat_idx >= 0) & (flat_idx < n)
+    tgt = torch.where(keep, flat_idx, torch.full_like(flat_idx, n))
+    winner = torch.full((n + 1,), -1, dtype=torch.int64, device=flat_idx.device)
+    winner = winner.scatter_reduce(0, tgt, pos, reduce="amax", include_self=True)[:n]
+    hit = winner >= 0
+    got = values[winner.clamp(min=0)]
+    return torch.where(hit, got, torch.zeros_like(got)), hit

@@ -304,7 +304,7 @@ def test_seed_depth_collision_matches_jax(scene):
     jidx = np.where(keep, idx, n)
     want = np.asarray(jnp.zeros(n, jnp.float32).at[jnp.asarray(jidx)].set(jnp.asarray(vals),
                                                                        mode="drop"))
-    got, hit = tgm._last_write_wins(t(idx), t(keep), t(vals), n)
+    got, hit = tgm.last_write_wins(t(idx), t(keep), t(vals), n)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(hit.numpy(), np.isin(np.arange(n), jidx))
 

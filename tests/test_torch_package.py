@@ -1,10 +1,12 @@
 """Package rules of the PyTorch port: it loads neither JAX, Triton nor the
 JAX package; its entry points (the Tracker, the whole-sequence scan and
-segmented runner, `SlamSystem` and the detector) run on the card unless
-asked for the CPU; `SlamSystem` refuses the parts not ported yet; the
-dynamic masks (the Tracker's `dynamic.enable_*`, the scan's and the
-segmented runner's `use_flow` and `use_geom`), loop closing and
-relocalization, together or alone, are accepted."""
+segmented runner, `SlamSystem`, the detector, the occupancy maps and the
+batched consumer) run on the card unless asked for the CPU; `SlamSystem`
+refuses a device mesh and runs each other part on the CPU when asked (the
+dense map, the stereo and monocular front ends, map and occupancy
+persistence); the dynamic masks (the Tracker's `dynamic.enable_*`, the
+scan's and the segmented runner's `use_flow` and `use_geom`), loop
+closing and relocalization, together or alone, are accepted."""
 
 import os
 import pathlib
@@ -63,6 +65,8 @@ def test_tracker_defaults_to_the_card():
 
 def test_slam_system_and_detector_default_to_the_card():
     from orb_slam2_ssd_semantic_tpu_torch.config import SemanticConfig
+    from orb_slam2_ssd_semantic_tpu_torch.dense.occupancy import BlockGridMap, empty_grid
+    from orb_slam2_ssd_semantic_tpu_torch.semantic.consume import make_batched_consume
     from orb_slam2_ssd_semantic_tpu_torch.semantic.detector import Detector
     from orb_slam2_ssd_semantic_tpu_torch.semantic.object_db import empty_db
     from orb_slam2_ssd_semantic_tpu_torch.semantic.ssdlite import init_ssdlite
@@ -72,29 +76,78 @@ def test_slam_system_and_detector_default_to_the_card():
         pytest.skip("a card is present: the default device is valid here")
     for make in (lambda: SlamSystem(SlamConfig(loop=NO_LOOP)),
                  lambda: SlamSystem(SlamConfig(loop=NO_LOOP), enable_semantics=True),
+                 lambda: SlamSystem(SlamConfig(loop=NO_LOOP), enable_dense_map=True),
                  lambda: Detector(SemanticConfig(checkpoint_path=None)),
-                 lambda: init_ssdlite(21), lambda: empty_db(4)):
+                 lambda: init_ssdlite(21), lambda: empty_db(4), lambda: empty_grid(),
+                 lambda: BlockGridMap(),
+                 lambda: make_batched_consume(SlamConfig(loop=NO_LOOP), [0], [0])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 
 
-@pytest.mark.parametrize("call", ["enable_dense_map", "mesh", "track_stereo", "track_monocular",
-                                  "save_map", "load_map", "save_octomap", "load_octomap"])
-def test_slam_system_refuses_unported_parts(call, tmp_path):
-    """Dense mapping, the other sensor modes, map persistence and the mesh
-    are refused, naming the slice they wait for."""
+@pytest.mark.parametrize("call", ["mesh"])
+def test_slam_system_refuses_unported_parts(call):
+    """The multi-device code is a later slice: a mesh is refused, naming
+    it."""
     from orb_slam2_ssd_semantic_tpu_torch.system import SlamSystem
 
-    cfg = SlamConfig(loop=NO_LOOP)
-    if call in ("enable_dense_map", "mesh"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            SlamSystem(cfg, device="cpu", **{call: True if call == "enable_dense_map" else object()})
-        return
-    sys_ = SlamSystem(cfg, device="cpu")
-    args = {"track_stereo": (np.zeros((8, 8)), np.zeros((8, 8)), 0.0),
-            "track_monocular": (np.zeros((8, 8)), 0.0)}.get(call, (str(tmp_path / "x.npz"),))
-    with pytest.raises(NotImplementedError, match="slice"):
-        getattr(sys_, call)(*args)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        SlamSystem(SlamConfig(loop=NO_LOOP), device="cpu", **{call: object()})
+
+
+def _tiny_config():
+    """32x24 pixels, a 3-keypoint-per-level budget and a coarse dense map:
+    each part below runs in well under a second on the CPU."""
+    import dataclasses
+
+    from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig, DenseMapConfig, OrbConfig
+
+    return SlamConfig(loop=NO_LOOP,
+                      camera=CameraConfig(fx=30.0, fy=30.0, cx=16.0, cy=12.0, width=32, height=24),
+                      orb=OrbConfig(n_features=24, max_keypoints=32, n_levels=2, edge_threshold=4),
+                      dense=dataclasses.replace(DenseMapConfig(), resolution=0.2,
+                                                block_voxels=8, max_ray_steps=8))
+
+
+@pytest.mark.parametrize("call", ["enable_dense_map", "track_stereo", "track_monocular",
+                                  "save_map", "load_map", "save_octomap", "load_octomap"])
+def test_slam_system_runs_each_part_on_the_cpu(call, tmp_path):
+    """Each part refused before its slice now runs on the CPU when asked
+    (the parity with JAX is `test_torch_dense.py`, `test_torch_stereo_mono.py`
+    and `test_torch_system.py`)."""
+    from orb_slam2_ssd_semantic_tpu_torch.dense.occupancy import BlockGridMap
+    from orb_slam2_ssd_semantic_tpu_torch.system import SlamSystem
+
+    cfg = _tiny_config()
+    h, w = cfg.camera.height, cfg.camera.width
+    img = np.random.default_rng(0).uniform(0, 255, (h, w)).astype(np.float32)
+    depth = np.full((h, w), 2.0, np.float32)
+    sys_ = SlamSystem(cfg, enable_dense_map=call in ("enable_dense_map", "save_octomap",
+                                                     "load_octomap"), device="cpu")
+    path = str(tmp_path / "x.npz")
+    if call in ("enable_dense_map", "save_octomap", "load_octomap"):
+        sys_.track_rgbd(img, depth, 0.0)
+        assert isinstance(sys_.grid, BlockGridMap) and sys_.grid.blocks
+        if call != "enable_dense_map":
+            sys_.save_octomap(path)
+            sys_.load_octomap(path)
+            assert isinstance(sys_.grid, BlockGridMap) and sys_.grid.blocks
+    elif call == "track_stereo":
+        T = sys_.track_stereo(img, np.roll(img, -2, axis=1), 0.0)
+        assert T.shape == (4, 4) and sys_.tracker.initialized
+    elif call == "track_monocular":
+        T = sys_.track_monocular(img, 0.0)
+        assert np.array_equal(T, np.eye(4)) and sys_._mono_seed is not None
+    else:
+        sys_.track_rgbd(img, depth, 0.0)
+        sys_.save_map(path)
+        if call == "load_map":
+            other = SlamSystem(cfg, device="cpu")
+            other.load_map(path)
+            assert other.tracker.initialized
+            assert other.tracker._n_kfs == sys_.tracker._n_kfs == 1
+        else:
+            assert int(np.load(path)["n_kfs"]) == 1
 
 
 def test_scan_entries_default_to_the_card():
