@@ -6,9 +6,10 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught). They run in the
-order 1-3, 9-11, 4-8: phases 4-8's views render on the CPU in a pool of
-worker processes at a lower priority while phases 9-11, which render on
-the card, run.
+order 1-3, 9 (without 9c), 10, 11, 12a-c, 9c, 4-8, 12c-d: the views of
+phases 4-8 and 9c render on the CPU in a pool of worker processes at a
+lower priority while phases 9-12, which render on the card or need no
+view, run.
   1. print the card (nvidia-smi) and torch; build the CUDA kernels from
      `orb_slam2_ssd_semantic_tpu_torch/csrc/` with nvcc (one process per
      source, all at once) into `build/torch_kernels/`; time an empty
@@ -79,7 +80,7 @@ the card, run.
      a. `track_sequence` on phase 4's frames at the default config: per-
         frame status and keyframe frames equal to phase 4's
         `Tracker.process`, camera positions within 1e-4 m of its poses,
-        and a second `process` run on the same frames as close (the
+        and a second `process` run on its first 64 frames as close (the
         entry points run deterministic kernels only), ATE under 1 cm, B1
         launched; then
         the first frames one at a time through `init_scan` and
@@ -87,7 +88,8 @@ the card, run.
         window of steady frames;
      b. `track_sequence_segmented` on `tests/test_segmented.py`'s circuit
         at 640x480 (145 frames, 2.35 laps, 1% depth noise, segments of
-        36) at `bench.py`'s widths with the named vocabulary, three
+        36), cut to its first three segments (109 frames), at `bench.py`'s
+        widths with the named vocabulary, three
         times: a verifier whose estimates agree (D = 0) with the real
         `_correct` (at least 2 loop events and 1 correction), the test's
         disagreeing estimates (no correction), and the plain
@@ -181,7 +183,33 @@ the card, run.
         finite poses, the camera moved, B1 launched at the initializer's
         (1024, 1024) r = 100 search (also held exact against the plain
         version in phase 2);
- 12. one JSON line of per-kernel numbers, the card's name and power limit,
+ 12. training, the apps and profiling (counts zeroed before each part,
+     read after; B1's and B2's launches here are `launches_apps`):
+     a. one training step (`semantic/train.value_and_grad`) of the seeded
+        4-class SSDLite on a numpy batch of 2, on the card and on a CPU
+        copy: the loss within 1e-5 relative, each of the 404 gradients
+        (the BatchNorm statistics' too) within 1e-4 of its norm;
+     b. `apps/train_ssdlite.main` (200 steps of 16 device-drawn images, 4
+        classes): the last chunk's mean loss under 0.6x the first's; ms a
+        step, a step's launches, peak memory; its checkpoint loaded into a
+        card `Detector` with no warning and run on `test_ssd_e2e.py`'s
+        rectangle (the best detection reported, not gated);
+     c. the apps: `rgbd_tum.main` on phase 10's 48 frames written as a TUM
+        sequence (PNGs, `associate.txt`, `groundtruth.txt`) with a JSON of
+        phase 11b's configuration, `--semantics --dense-map --groundtruth`
+        (every frame OK, ATE under 1 cm, both trajectory files read back);
+        `detect_locate.main` with 12b's checkpoint on 4 of phase 10's
+        views and the rectangle at 2 m as npy, both schemes, against the
+        app on the CPU (1e-4 m, labels equal, at least one object);
+        `cloud_to_occupancy.main` on 11a's keyframe cloud (5 chunks),
+        against the CPU on every voxel;
+        after phase 8, `run_synthetic.track` on phase 4's first 24 frames
+        (phase 4's poses, 0.0 m) and `train_vocabulary`'s tree and TF-IDF
+        on the card's descriptors of 8 of phase 4's frames (k = 10, depth
+        3: the file loads, and `quantize` on the card equals the CPU's);
+     d. `utils/profiling.trace` around 4 tracked frames in `annotate`
+        ranges: the Chrome trace holds the labels and B1's two kernels;
+ 13. one JSON line of per-kernel numbers, the card's name and power limit,
      and the result line last.
 
 Without a CUDA card it exits non-zero and prints no result.
@@ -213,6 +241,14 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from orb_slam2_ssd_semantic_tpu_torch.apps import (
+    cloud_to_occupancy,
+    detect_locate,
+    rgbd_tum,
+    run_synthetic,
+    train_ssdlite,
+    train_vocabulary,
+)
 from orb_slam2_ssd_semantic_tpu_torch.config import (
     CameraConfig,
     DenseMapConfig,
@@ -241,6 +277,7 @@ from orb_slam2_ssd_semantic_tpu_torch.frontend import extractor
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
 from orb_slam2_ssd_semantic_tpu_torch.io import device_render
 from orb_slam2_ssd_semantic_tpu_torch.io import vocabulary as voc
+from orb_slam2_ssd_semantic_tpu_torch.io.tum import read_trajectory, write_trajectory
 from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import (
     BoxRoom,
     SyntheticSequence,
@@ -281,6 +318,13 @@ from orb_slam2_ssd_semantic_tpu_torch.semantic.detector import Detections, Detec
 from orb_slam2_ssd_semantic_tpu_torch.semantic.fusion import fuse_detections, segment_objects
 from orb_slam2_ssd_semantic_tpu_torch.semantic.object_db import add_objects, empty_db
 from orb_slam2_ssd_semantic_tpu_torch.semantic.ssdlite import init_ssdlite
+from orb_slam2_ssd_semantic_tpu_torch.semantic.train import (
+    adam,
+    make_train_step,
+    synthetic_detection_batch,
+    synthetic_detection_batch_device,
+    value_and_grad,
+)
 from orb_slam2_ssd_semantic_tpu_torch.system import SlamSystem
 from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import (
     Tracker,
@@ -288,6 +332,7 @@ from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import (
     depth_metres,
     insert_keyframe,
 )
+from orb_slam2_ssd_semantic_tpu_torch.utils import profiling
 from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
@@ -375,7 +420,9 @@ JAX_7C_MEETS_GATE, ATE_SLACK = False, 0.005
 LOOP_RANGES = ("loop.detect", "loop.sim3", "loop.confirm", "loop.pose_graph", "loop.fuse",
                "loop.global_ba")
 # Phase 8. 8a: the scan on phase 4's frames against phase 4's poses, and a
-# second `Tracker.process` run against them too. The entry points run
+# second `Tracker.process` run on the first AGAIN_FRAMES frames (past the
+# keyframe at frame 62; cut from 96 to fit the script's time)
+# against them too. The entry points run
 # deterministic kernels only (`utils/precision.py`), so both should repeat
 # phase 4 exactly; 1e-4 m leaves room for nothing but a changed order of
 # the same ops. (Before the entry points were made deterministic, two
@@ -383,8 +430,12 @@ LOOP_RANGES = ("loop.detect", "loop.sim3", "loop.confirm", "loop.pose_graph", "l
 # keyframe on: `determinism_probe.py` shows it.) The frames up
 # to phase 4's profiled window are then replayed one at a time. 8b:
 # `tests/test_segmented.py`'s circuit at 640x480, `bench.py`'s ATE gate.
-SCAN_POS_TOL = 1e-4
+SCAN_POS_TOL, AGAIN_FRAMES = 1e-4, 64
 SEG_FRAMES, SEG_LAPS, SEG_NOISE, SEG_LEN = 145, 2.35, 0.01, 36
+# The runs take the circuit's first three full segments (cut to fit the
+# script's time): the segments, the loop events at frames 80-108
+# and the correction at 86 are those of the whole circuit's first three.
+SEG_RUN_FRAMES = 1 + 3 * SEG_LEN
 # Each real correction of run 1 is applied again to a CPU copy of the
 # state it met, through the same code: the frames tracked before it (up to
 # the end of its segment) must then resolve to the same ATE within
@@ -472,6 +523,25 @@ CONSUME_CENTROID_TOL, CONSUME_VOXEL_SHARE = 0.10, 0.02
 STEREO_FRAMES, STEREO_ATE_FACTOR = 24, 2.0
 STEREO_CPU_ATE = 0.0024569
 MONO_FRAMES = 24
+# Phase 12 (training, the apps, profiling). 12a: one step of the seeded
+# 4-class SSDLite on a batch of 2, card against CPU: the loss within
+# TRAIN_LOSS_TOL relative, each gradient within TRAIN_GRAD_TOL of its norm
+# (`tests/test_torch_train.py`'s limits against JAX). 12b: the training
+# app, TRAIN_STEPS steps of TRAIN_BATCH (22-27 s on the card), the
+# last chunk's mean loss under TRAIN_DROP of the first's
+# (`tests/test_ssd_train.py`'s rule). 12c: `detect_locate` on
+# LOCATE_VIEWS of phase 10, card against CPU within LOCATE_TOL (phase
+# 10c's database limit); `cloud_to_occupancy` on 11a's cloud (76,800
+# points at 640x480: 5 chunks); `run_synthetic` on phase 4's first
+# APP_FRAMES frames;
+# `train_vocabulary` on VOCAB_FRAMES of phase 4. 12d: a trace of
+# TRACE_FRAMES tracked frames.
+TRAIN_CLASSES, TRAIN_STEPS, TRAIN_BATCH, TRAIN_DROP = 4, 200, 16, 0.6
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+LOCATE_VIEWS, LOCATE_TOL = (0, 12, 24, 36), 1e-4
+APP_FRAMES = 24
+VOCAB_FRAMES, VOCAB_K, VOCAB_DEPTH = tuple(range(0, 96, 12)), 10, 3
+TRACE_FRAMES = range(1, 5)
 
 
 def _log(msg: str) -> None:
@@ -839,6 +909,7 @@ def _render_init(n_frames: int, seg_cam: CameraConfig | None = None) -> None:
     _LOOP_SEQ = loop_sequence()
     _LOOP_ROOM = BoxRoom(seed=3, cam=CameraConfig())
     _SEG_SEQ = segmented_sequence(seg_cam)
+    _dyn9_init(CameraConfig())
 
 
 def _sequential_render(seq: SyntheticSequence, i: int):
@@ -857,7 +928,8 @@ def _render(task):
     its depth noise drawn as a sequential render draws it; ("seg", i):
     frame i of phase 8b's sequence, likewise, quantized to uint8 gray and
     uint16 mm depth as the segmented runner's tests feed it; ("room3",
-    pose): a view of phase 7a's room."""
+    pose): a view of phase 7a's room; ("dyn", kind, i): frame i of phase
+    9c's static or dynamic scene."""
     if isinstance(task, int):
         return _SEQ.gray_depth(task)
     if isinstance(task, tuple) and task[0] == "loop":
@@ -867,6 +939,8 @@ def _render(task):
         return np.clip(g, 0, 255).astype(np.uint8), (d * 1000).astype(np.uint16)
     if isinstance(task, tuple) and task[0] == "room3":
         return _LOOP_ROOM.render(task[1])
+    if isinstance(task, tuple) and task[0] == "dyn":
+        return _dyn9_render(task[1:])
     return _SEQ.room.render(task)
 
 
@@ -882,13 +956,14 @@ def kidnap_poses(seq: SyntheticSequence) -> list:
 
 
 def start_render(n_frames: int, n_loop: int = 0, n_seg: int = 0,
-                 seg_cam: CameraConfig | None = None) -> dict:
+                 seg_cam: CameraConfig | None = None, dyn: bool = False) -> dict:
     """Start rendering the sequence's frames, phase 6's kidnapped views,
     with `n_loop` phase 7's views (the first `n_loop` frames of 7c's
-    sequence, 7a's revisit and open-arc keyframes) and with `n_seg` the
+    sequence, 7a's revisit and open-arc keyframes), with `n_seg` the
     first `n_seg` frames of phase 8b's sequence (at `seg_cam`, 640x480 by
-    default) in a pool of worker processes (the renderer is
-    single-threaded numpy); `finish_render` collects them."""
+    default) and with `dyn` phase 9c's 2 x DYN_FRAMES frames at 640x480, in
+    a pool of worker processes (the renderer is single-threaded numpy);
+    `finish_render` collects them."""
     seq = SyntheticSequence(n_frames=n_frames)
     poses = kidnap_poses(seq)
     tasks = list(range(n_frames)) + poses
@@ -898,18 +973,21 @@ def start_render(n_frames: int, n_loop: int = 0, n_seg: int = 0,
         tasks += [("loop", i) for i in range(n_loop)]
         tasks += [("room3", T) for T in arcs["revisit"] + arcs["open"]]
     tasks += [("seg", i) for i in range(n_seg)]
+    n_dyn = 2 * DYN_FRAMES if dyn else 0
+    tasks += [("dyn", k, i) for k in ("static", "dynamic") for i in range(DYN_FRAMES)][:n_dyn]
     workers = max(1, min(8, os.cpu_count() or 1))
     pool = multiprocessing.get_context("spawn").Pool(
         workers, initializer=_render_init, initargs=(n_frames, seg_cam))
     return dict(pool=pool, result=pool.map_async(_render, tasks), t0=time.perf_counter(),
                 seq=seq, poses=poses, arcs=arcs, n_frames=n_frames, n_loop=n_loop,
-                n_seg=n_seg, seg_cam=seg_cam)
+                n_seg=n_seg, seg_cam=seg_cam, n_dyn=n_dyn)
 
 
 def finish_render(job: dict):
     """Wait for `start_render`'s views and stop its pool. Returns
     (sequence, frames, [(T_wc, frame)] of the kidnapped views, phase 7's
-    views or None, phase 8b's sequence and frames or None)."""
+    views or None, phase 8b's sequence and frames or None, phase 9c's
+    {"static": frames, "dynamic": frames} or None)."""
     t_wait = time.perf_counter()
     try:
         out = job["result"].get()
@@ -918,9 +996,10 @@ def finish_render(job: dict):
         job["pool"].join()
     n_frames, n_loop, n_seg, poses = job["n_frames"], job["n_loop"], job["n_seg"], job["poses"]
     n7 = n_loop + 2 * LOOP_N_KF if n_loop else 0
-    _log(f"rendered {n_frames} frames, {KIDNAP_FRAMES} kidnapped views, phase 7's {n7} views "
-         f"and phase 8b's {n_seg} in {time.perf_counter() - job['t0']:.1f} s, of which "
-         f"{time.perf_counter() - t_wait:.1f} s were waited for")
+    n_dyn = job["n_dyn"]
+    _log(f"rendered {n_frames} frames, {KIDNAP_FRAMES} kidnapped views, phase 7's {n7} views, "
+         f"phase 8b's {n_seg} and phase 9c's {n_dyn} in {time.perf_counter() - job['t0']:.1f} s, "
+         f"of which {time.perf_counter() - t_wait:.1f} s were waited for")
     n_kid = n_frames + len(poses)
     loop = seg = None
     k = n_kid
@@ -931,8 +1010,13 @@ def finish_render(job: dict):
                     revisit=(arcs["revisit"], out[n_kid + n_loop:n_kid + n_loop + LOOP_N_KF]),
                     open=(arcs["open"], out[n_kid + n_loop + LOOP_N_KF:k]))
     if n_seg:
-        seg = dict(seq=segmented_sequence(job["seg_cam"]), frames=out[k:])
-    return job["seq"], out[:n_frames], list(zip(poses, out[n_frames:n_kid])), loop, seg
+        seg = dict(seq=segmented_sequence(job["seg_cam"]), frames=out[k:k + n_seg])
+    dyn = None
+    if n_dyn:
+        k += n_seg
+        dyn = {"static": out[k:k + DYN_FRAMES], "dynamic": out[k + DYN_FRAMES:k + n_dyn]}
+    return (job["seq"], out[:n_frames], list(zip(poses, out[n_frames:n_kid])), loop, seg,
+            dyn)
 
 
 def render_frames(n_frames: int, n_loop: int = 0, n_seg: int = 0,
@@ -974,7 +1058,7 @@ def _device_breakdown(prof, n_frames: int, frame_ms: float) -> dict:
 
 
 def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
-                  n_seg: int = SEG_FRAMES, seg_cam: CameraConfig | None = None,
+                  n_seg: int = SEG_RUN_FRAMES, seg_cam: CameraConfig | None = None,
                   rendered=None) -> dict:
     """Phase 4, on `rendered` (`finish_render`'s result; rendered here
     when None). The result holds the tracker, the poses `process` returned
@@ -1623,7 +1707,7 @@ def _kf_frames(n_kfs) -> list:
 def run_scan_path(dev, main_res: dict, card: str) -> dict:
     """8a: `track_sequence` on phase 4's frames with phase 4's config,
     held against phase 4's `Tracker.process`, as is a second `process` run
-    on the same frames (deterministic kernels: both repeat phase 4); then the frames up to phase 4's profiled
+    on its first AGAIN_FRAMES frames (deterministic kernels: both repeat phase 4); then the frames up to phase 4's profiled
     window again, one at a time through `init_scan` and
     `track_sequence_scan`, for the per-frame time and, on the card, the
     launches and syncs a steady frame."""
@@ -1650,16 +1734,18 @@ def run_scan_path(dev, main_res: dict, card: str) -> dict:
     pos_err = float(pos_diff.max())
     ate = evaluate_ate_xyz(_centres(T_all), seq.gt_positions()[:n]).rmse
 
-    # The card's own spread: `Tracker.process` again on the same frames.
+    # The card's own spread: `Tracker.process` again on the first
+    # AGAIN_FRAMES frames.
     again = Tracker(cfg, device=dev)
     poses2, again_ms = [], []
-    for i, (gray, depth) in enumerate(frames):
+    for i, (gray, depth) in enumerate(frames[:AGAIN_FRAMES]):
         sync()
         t = time.perf_counter()
         poses2.append(again.process(gray, depth, float(seq.stamps[i])))
         sync()
         again_ms.append((time.perf_counter() - t) * 1e3)
-    spread = float(np.linalg.norm(_centres(np.stack(poses2)) - _centres(poses), axis=1).max())
+    spread = float(np.linalg.norm(_centres(np.stack(poses2)) - _centres(poses[:len(poses2)]),
+                                  axis=1).max())
 
     # The replay: frame by frame, the window profiled on the card.
     n_replay = min(PROFILE_FRAMES[-1] + 1, n)
@@ -2023,17 +2109,20 @@ def dynamic_configs(cam: CameraConfig) -> dict:
             "geom": base.replace(dynamic=DynamicConfig(enable_geometry=True))}
 
 
-def check_masked_tracking(dev, cam: CameraConfig, card: str) -> dict:
+def check_masked_tracking(dev, cam: CameraConfig, card: str, frames: dict | None = None) -> dict:
     """9c: the four dynamic runs through `Tracker.process` and their
-    gates; stage times, and a profiled steady frame of each masked run."""
-    ctx = multiprocessing.get_context("spawn")
-    tasks = [(k, i) for k in ("static", "dynamic") for i in range(DYN_FRAMES)]
-    t0 = time.perf_counter()
-    with ctx.Pool(max(1, min(8, os.cpu_count() or 1)), initializer=_dyn9_init,
-                  initargs=(cam,)) as pool:
-        out = pool.map(_dyn9_render, tasks)
-    frames = {"static": out[:DYN_FRAMES], "dynamic": out[DYN_FRAMES:]}
-    _log(f"9c: rendered {len(tasks)} frames in {time.perf_counter() - t0:.1f} s")
+    gates; stage times, and a profiled steady frame of each masked run.
+    `frames`: the static and dynamic scenes' frames at `cam` (rendered
+    here in a pool of their own when None)."""
+    if frames is None:
+        ctx = multiprocessing.get_context("spawn")
+        tasks = [(k, i) for k in ("static", "dynamic") for i in range(DYN_FRAMES)]
+        t0 = time.perf_counter()
+        with ctx.Pool(max(1, min(8, os.cpu_count() or 1)), initializer=_dyn9_init,
+                      initargs=(cam,)) as pool:
+            out = pool.map(_dyn9_render, tasks)
+        frames = {"static": out[:DYN_FRAMES], "dynamic": out[DYN_FRAMES:]}
+        _log(f"9c: rendered {len(tasks)} frames in {time.perf_counter() - t0:.1f} s")
     seq = SyntheticSequence(n_frames=DYN_FRAMES, cam=cam)
     gt = seq.gt_positions()
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -2140,15 +2229,16 @@ def run_masked_segmented(dev, cam: CameraConfig, scene: dict, card: str) -> dict
 
 
 def run_dynamic_path(dev, card: str, cam: CameraConfig | None = None,
-                     n_frames: int = WALK_FRAMES) -> dict:
+                     n_frames: int = WALK_FRAMES, masked_tracking: bool = True) -> dict:
     """Phase 9 at `cam` (640x480 by default); the launch counters are
-    zeroed before and read after."""
+    zeroed before and read after. Without `masked_tracking`, 9c is left to
+    the caller (`main` runs it on views of the render pool)."""
     cam = cam or CameraConfig()
     t9 = time.perf_counter()
     _reset_counts()
     scene = check_render(dev, cam, n_frames, card)
     masks = check_masks(dev, cam, scene, card)
-    tracked = check_masked_tracking(dev, cam, card)
+    tracked = check_masked_tracking(dev, cam, card) if masked_tracking else None
     seg = run_masked_segmented(dev, cam, scene, card)
     counts = _counts()
     _log(f"phase 9 took {time.perf_counter() - t9:.1f} s, launches {json.dumps(counts)}; "
@@ -2653,6 +2743,8 @@ def check_dense_functions(dev, scene: dict, cam: CameraConfig, card: str) -> dic
         raise AssertionError(f"11a: the card's ground split differs from the CPU's: {out}")
     for name, *_ in cases:
         _check_gaps(f"11a {name}", out[name])
+    # Phase 12c inserts this keyframe's cloud through the occupancy app.
+    out["cloud"] = dict(points=pts_c[valid_c].numpy(), origin=args_c[0].numpy())
     return out
 
 
@@ -2945,6 +3037,380 @@ def run_dense_path(dev, card: str, scene: dict, params: dict,
                 launches=counts, phase_s=phase_s, times=times)
 
 
+# ---- phase 12: training, the apps and profiling -------------------------------
+
+def check_training(dev, card: str) -> dict:
+    """12a: one training step's loss and gradients (`train.value_and_grad`)
+    of the seeded 4-class SSDLite on a numpy batch of 2, on the card and on
+    a CPU copy: the loss within TRAIN_LOSS_TOL relative, every one of the
+    404 gradients (the batch statistics' too) within TRAIN_GRAD_TOL of that
+    gradient's norm. Gradients, not weights after a step: Adam's first step
+    is +-lr for any nonzero gradient, so a gradient near 0 could flip a
+    weight by 2 lr between devices. (How far each backend's f32 step lies
+    from float64: `train_precision_probe.py`.)"""
+    batch = synthetic_detection_batch(np.random.default_rng(1), 2, n_classes=3)
+    (loss, grads), card_ms = _timed(
+        lambda: value_and_grad(init_ssdlite(TRAIN_CLASSES, seed=0, device=dev), *batch), dev)
+    t = time.perf_counter()
+    loss_c, grads_c = value_and_grad(init_ssdlite(TRAIN_CLASSES, seed=0, device="cpu"), *batch)
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    # Largest difference over the CPU gradient's norm, per nonzero gradient.
+    rel = {k: float((grads[k].cpu().double() - g.double()).abs().max())
+           / float(torch.linalg.vector_norm(g.double()))
+           for k, g in grads_c.items() if float(g.abs().max()) > 0}
+    zero_mismatch = [k for k, g in grads_c.items()
+                     if k not in rel and float(grads[k].abs().max()) != 0.0]
+    worst = max(rel, key=rel.get)
+    stats = [k for k in rel if k.endswith(("running_mean", "running_var"))]
+    res = dict(arrays=len(grads_c), loss=float(loss), loss_cpu=float(loss_c),
+               loss_rel_gap=abs(float(loss) - float(loss_c)) / abs(float(loss_c)),
+               worst_gradient=worst, worst_gradient_rel_gap=rel[worst],
+               worst_batch_stat_rel_gap=max(rel[k] for k in stats),
+               over_tol=sum(v > TRAIN_GRAD_TOL for v in rel.values()),
+               batch_stats_with_gradient=len(stats), zero_gradients=len(grads_c) - len(rel),
+               zero_mismatch=zero_mismatch, card_first_call_ms=card_ms, cpu_ms=cpu_ms)
+    _log("12a one training step, card against CPU: " + json.dumps(res) + f"; limits: loss "
+         f"{TRAIN_LOSS_TOL} relative, gradients {TRAIN_GRAD_TOL} of each norm; card: {card}")
+    if res["arrays"] != 404 or len(stats) < 100 or zero_mismatch:
+        raise AssertionError(f"12a: gradients missing or zero on one side only: {res}")
+    if not (res["loss_rel_gap"] <= TRAIN_LOSS_TOL and rel[worst] <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"12a: the card's training step differs from the CPU's: {res}")
+    return res
+
+
+def e2e_rectangle(c: int = 2, n_classes: int = 3, w: int = 640, h: int = 480):
+    """`tests/test_ssd_e2e.py::_render_scene`: a noisy background and one
+    solid rectangle whose intensity band is class `c`; (rgb, box px)."""
+    rng = np.random.default_rng(7)
+    img = rng.normal(0.0, 0.08, (h, w, 3)).astype(np.float32)
+    x1, y1, bw, bh = 0.3, 0.3, 0.35, 0.35
+    px = [int(x1 * w), int(y1 * h), int((x1 + bw) * w), int((y1 + bh) * h)]
+    img[px[1]:px[3], px[0]:px[2], :] = -0.8 + 1.6 * c / n_classes + rng.normal(
+        0.0, 0.05, (px[3] - px[1], px[2] - px[0], 3))
+    return np.clip(img * 127.5 + 127.5, 0, 255).astype(np.uint8), np.asarray(px, np.float32)
+
+
+def _iou(a, b) -> float:
+    lt, rb = np.maximum(a[:2], b[:2]), np.minimum(a[2:], b[2:])
+    inter = float(np.prod(np.maximum(rb - lt, 0)))
+    return inter / max(float(np.prod(a[2:] - a[:2]) + np.prod(b[2:] - b[:2])) - inter, 1e-9)
+
+
+def run_training_app(dev, card: str, work: Path) -> dict:
+    """12b: `train_ssdlite.main` (TRAIN_STEPS steps of batch TRAIN_BATCH,
+    4 classes, seed 0) on `dev`: the last chunk's mean loss under
+    TRAIN_DROP of the first's (`tests/test_ssd_train.py`'s rule); ms a step,
+    the launches of a step, peak memory; the checkpoint loaded into a
+    `Detector` with no warning and run on `test_ssd_e2e.py`'s rectangle
+    (class 2): the best detection is reported, not gated."""
+    ckpt = str(work / "ssdlite_c4.npz")
+    argv = ["--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--classes",
+            str(TRAIN_CLASSES), "--out", ckpt, "--seed", "0"]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    else:
+        argv += ["--device", "cpu"]
+    res = train_ssdlite.main(argv)
+    mem = profiling.device_memory_stats()
+    steps = len(res.chunk_losses) * train_ssdlite.INNER
+    step = make_train_step(res.model, adam(res.model))
+    batch = synthetic_detection_batch_device(torch.Generator(device=dev).manual_seed(99),
+                                             TRAIN_BATCH, n_classes=3)
+    step(*batch)
+    prof = _profile_call(lambda: step(*batch), dev, prefix="train.")
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="could not load SSD checkpoint")
+        warnings.filterwarnings("error", message="trained artifact")
+        det = Detector(SemanticConfig(num_classes=TRAIN_CLASSES, det_score_threshold=0.4,
+                                      fusion_prob_threshold=0.4, checkpoint_path=ckpt),
+                       device=dev)
+    rgb, gt_px = e2e_rectangle()
+    out = det(rgb)
+    boxes, scores = out.boxes.cpu().numpy(), out.scores.cpu().numpy()
+    classes, valid = out.classes.cpu().numpy(), out.valid.cpu().numpy()
+    best = [dict(cls=int(classes[i]), score=float(scores[i]), iou=_iou(boxes[i], gt_px))
+            for i in np.nonzero(valid)[0]]
+    r = dict(steps=steps, batch=TRAIN_BATCH, seconds=res.seconds,
+             ms_per_step=res.seconds * 1e3 / steps, chunk_losses=res.chunk_losses,
+             first_chunk=res.chunk_losses[0], last_chunk=res.chunk_losses[-1],
+             launches_per_step=prof.get("runtime_calls", {}).get("cudaLaunchKernel"),
+             syncs_per_step=prof.get("runtime_calls", {}).get("cudaStreamSynchronize", 0),
+             device_busy_ms_per_step=prof.get("device_busy_ms"),
+             memory=mem,
+             detections=len(best), top_detection=max(best, key=lambda d: d["score"], default=None),
+             best_class2_iou=max((d["iou"] for d in best if d["cls"] == 2), default=0.0))
+    _log("12b train_ssdlite on the card: " + json.dumps(r) + f"; limit: last chunk < "
+         f"{TRAIN_DROP} x the first; card: {card}")
+    if not r["last_chunk"] < TRAIN_DROP * r["first_chunk"]:
+        raise AssertionError(f"12b: the loss fell from {r['first_chunk']:.4f} to only "
+                             f"{r['last_chunk']:.4f}")
+    return r | {"checkpoint": ckpt}
+
+
+def write_tum_sequence(root: Path, scene: dict) -> None:
+    """Phase 10's frames as a TUM RGB-D sequence: RGB PNGs (the gray view in
+    three channels), 16-bit depth PNGs at the factor 5000,
+    `associate.txt` and `groundtruth.txt` (the rendering poses)."""
+    from PIL import Image
+
+    (root / "rgb").mkdir(parents=True, exist_ok=True)
+    (root / "depth").mkdir(parents=True, exist_ok=True)
+    lines = []
+    for i, (g, d) in enumerate(zip(scene["gray_host"], scene["depth_host"])):
+        t = f"{i / 30.0:.6f}"
+        Image.fromarray(np.repeat(g[..., None], 3, axis=-1)).save(root / "rgb" / f"{t}.png")
+        Image.fromarray((d.astype(np.uint32) * 5).astype(np.uint16)).save(
+            root / "depth" / f"{t}.png")
+        lines.append(f"{t} rgb/{t}.png {t} depth/{t}.png")
+    (root / "associate.txt").write_text("\n".join(lines) + "\n")
+    T_wc = scene["poses"]
+    qs = [se3.rot_to_quat(torch.from_numpy(np.ascontiguousarray(T[:3, :3]))).numpy()
+          for T in T_wc]
+    write_trajectory(str(root / "groundtruth.txt"), [i / 30.0 for i in range(len(T_wc))],
+                     T_wc[:, :3, 3], qs)
+
+
+def run_rgbd_tum_app(dev, scene: dict, cam: CameraConfig, card: str, work: Path) -> dict:
+    """12c: `rgbd_tum.main` on phase 10's frames written as a TUM sequence,
+    with a JSON settings file of phase 11b's configuration (the detector's
+    seeded weights, which 11b passes as parameters), `--semantics
+    --dense-map --groundtruth`: every frame OK, ATE under SEM_ATE_GATE,
+    both trajectory files read back (a line a frame, a line a keyframe)."""
+    root, out = work / "tum", work / "tum_out"
+    t = time.perf_counter()
+    write_tum_sequence(root, scene)
+    write_s = time.perf_counter() - t
+    base = SlamConfig(camera=cam)
+    cfg = base.replace(
+        tracking=dataclasses.replace(base.tracking, max_frames_between_kfs=DENSE_KF_GAP),
+        semantic=dataclasses.replace(base.semantic, checkpoint_path=None))
+    (root / "settings.json").write_text(cfg.to_json())
+    argv = ["--sequence", str(root), "--settings", str(root / "settings.json"), "--semantics",
+            "--dense-map", "--groundtruth", str(root / "groundtruth.txt"), "--out", str(out)]
+    if dev.type != "cuda":
+        argv += ["--device", "cpu"]
+    res = rgbd_tum.main(argv)
+    tr = res.system.tracker
+    cam_stamps = read_trajectory(str(out / "CameraTrajectory.txt"))[0]
+    kf_stamps = read_trajectory(str(out / "KeyFrameTrajectory.txt"))[0]
+    r = dict(frames=len(res.frame_s), write_s=write_s,
+             statuses_ok=sum(s["status"] == "OK" for s in tr.stats), ate_m=res.ate.rmse,
+             ate_pairs=res.ate.n_pairs, camera_lines=len(cam_stamps), keyframe_lines=len(kf_stamps),
+             keyframes=tr._n_kfs, objects=len(res.system.objects()),
+             occupied=len(res.system.grid.occupied_centers()[0]),
+             median_frame_ms=statistics.median(res.frame_s[1:]) * 1e3)
+    _log("12c rgbd_tum on phase 10's frames: " + json.dumps(r) + f"; limits: ATE < "
+         f"{SEM_ATE_GATE} m, every frame OK; card: {card}")
+    n = len(scene["poses"])
+    if not (r["statuses_ok"] == r["frames"] == n and r["ate_m"] < SEM_ATE_GATE):
+        raise AssertionError(f"12c rgbd_tum: {r}")
+    if not (r["camera_lines"] == n and r["keyframe_lines"] == r["keyframes"] >= 2):
+        raise AssertionError(f"12c rgbd_tum: the trajectory files hold {r['camera_lines']} and "
+                             f"{r['keyframe_lines']} lines for {n} frames, {r['keyframes']} "
+                             f"keyframes")
+    return r
+
+
+def check_detect_locate_app(dev, scene: dict, ckpt: str, card: str, work: Path) -> dict:
+    """12c: `detect_locate.main` with 12b's checkpoint on LOCATE_VIEWS of
+    phase 10 and `test_ssd_e2e.py`'s rectangle on a plane 2 m away (so
+    that at least one detection passes the fusion gate), saved as npy,
+    both fusion schemes, on `dev` and on the CPU: the same objects (valid
+    flags and classes equal, centroids within LOCATE_TOL), at least one."""
+    src = work / "locate"
+    src.mkdir(parents=True, exist_ok=True)
+    views = [(np.repeat(scene["gray_host"][i][..., None], 3, axis=-1),
+              scene["depth_host"][i].astype(np.float32) * 1e-3) for i in LOCATE_VIEWS]
+    rect = e2e_rectangle(w=views[0][0].shape[1], h=views[0][0].shape[0])[0]
+    views.append((rect, np.full(rect.shape[:2], 2.0, np.float32)))
+    for i, (rgb, depth) in enumerate(views):
+        np.save(src / f"rgb_{i:03d}.npy", rgb)
+        np.save(src / f"depth_{i:03d}.npy", depth)
+    res = {}
+    for scheme in ("depth", "seg"):
+        argv = ["--source", str(src), "--frames", str(len(views)), "--scheme", scheme,
+                "--params", ckpt]
+        db, ms = _timed(lambda: detect_locate.main(argv + (
+            [] if dev.type == "cuda" else ["--device", "cpu"])), dev)
+        db_c = detect_locate.main(argv + ["--device", "cpu"])
+        v, v_c = db.valid.cpu().numpy(), db_c.valid.cpu().numpy()
+        same = bool((v == v_c).all())
+        res[scheme] = dict(objects=int(v.sum()), objects_cpu=int(v_c.sum()), valid_equal=same,
+                           classes_equal=same and bool((db.class_id.cpu().numpy()[v]
+                                                        == db_c.class_id.cpu().numpy()[v]).all()),
+                           centroid_gap_m=float(np.abs(db.centroid.cpu().numpy()[v]
+                                                       - db_c.centroid.cpu().numpy()[v]).max())
+                           if same and v.any() else (0.0 if same else None),
+                           app_ms=ms)
+    _log("12c detect_locate, card against CPU: " + json.dumps(res) + f"; limit: centroids "
+         f"{LOCATE_TOL} m, labels equal; card: {card}")
+    for scheme, r in res.items():
+        if not (r["classes_equal"] and r["centroid_gap_m"] <= LOCATE_TOL and r["objects"] > 0):
+            raise AssertionError(f"12c detect_locate ({scheme}): the card's database differs "
+                                 f"from the CPU's: {r}")
+    return res
+
+
+def check_cloud_app(dev, cloud: dict, card: str, work: Path) -> dict:
+    """12c: `cloud_to_occupancy.main` on phase 11a's keyframe cloud (at
+    least 2 chunks), from its sensor origin, on `dev` and on the CPU: the
+    two files equal on every voxel."""
+    pts = cloud["points"]
+    path = work / "cloud.npz"
+    np.savez(path, points=pts)
+    argv = [str(path), "", "--origin", *(str(float(x)) for x in cloud["origin"])]
+    outs = {}
+    for name, extra in (("card", [] if dev.type == "cuda" else ["--device", "cpu"]),
+                        ("cpu", ["--device", "cpu"])):
+        argv[1] = str(work / f"occupancy_{name}.npz")
+        outs[name] = _timed(lambda: cloud_to_occupancy.main(argv + extra), dev)[1]
+    with np.load(work / "occupancy_card.npz") as a, np.load(work / "occupancy_cpu.npz") as b:
+        lo, lo_c = a["log_odds"], b["log_odds"]
+        r = dict(points=len(pts), chunks=-(-len(pts) // cloud_to_occupancy.CHUNK),
+                 touched=int(((lo != 0) | (lo_c != 0)).sum()), flips=int((lo != lo_c).sum()),
+                 occupied=int((lo > 0).sum()),
+                 other_arrays_equal=all(np.array_equal(a[k], b[k]) for k in a.files),
+                 card_ms=outs["card"], cpu_ms=outs["cpu"])
+    _log("12c cloud_to_occupancy, card against CPU: " + json.dumps(r) + f"; card: {card}")
+    if not (r["chunks"] >= 2 and r["touched"] > 1000 and r["flips"] == 0
+            and r["other_arrays_equal"]):
+        raise AssertionError(f"12c cloud_to_occupancy: {r}")
+    return r
+
+
+def run_apps_path(dev, card: str, scene: dict, cloud: dict,
+                  cam: CameraConfig | None = None) -> dict:
+    """Phase 12a-12c's apps on phases 10-11's data (counts zeroed before,
+    read after): training against the CPU, the training app, `rgbd_tum`,
+    `detect_locate` and `cloud_to_occupancy`."""
+    cam = cam or CameraConfig()
+    work = Path(__file__).resolve().parent / "build" / "apps_check"
+    work.mkdir(parents=True, exist_ok=True)
+    t12 = time.perf_counter()
+    _reset_counts()
+    times = {}
+    t = time.perf_counter()
+    training = check_training(dev, card)
+    times["12a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    train_app = run_training_app(dev, card, work)
+    times["12b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tum = run_rgbd_tum_app(dev, scene, cam, card, work)
+    times["12c_rgbd_tum"] = time.perf_counter() - t
+    t = time.perf_counter()
+    locate = check_detect_locate_app(dev, scene, train_app["checkpoint"], card, work)
+    times["12c_detect_locate"] = time.perf_counter() - t
+    t = time.perf_counter()
+    occupancy = check_cloud_app(dev, cloud, card, work)
+    times["12c_cloud_to_occupancy"] = time.perf_counter() - t
+    counts = _counts()
+    phase_s = time.perf_counter() - t12
+    _log(f"phase 12a-c took {phase_s:.1f} s ({json.dumps(times)}), launches {json.dumps(counts)}; "
+         f"card: {card}")
+    if dev.type == "cuda" and counts["window_match"] == 0:
+        raise AssertionError("12c: rgbd_tum never launched the window matcher")
+    return dict(training=training, train_app=train_app, rgbd_tum=tum, detect_locate=locate,
+                cloud_to_occupancy=occupancy, launches=counts, phase_s=phase_s, times=times)
+
+
+def check_run_synthetic(dev, rendered, main_poses: np.ndarray, card: str) -> dict:
+    """12c: `run_synthetic.track` on phase 4's first APP_FRAMES frames at
+    phase 4's config: the poses phase 4's `Tracker.process` returned
+    (0.0 m: one code path, deterministic kernels)."""
+    seq, frames, *_ = rendered
+    n = APP_FRAMES
+    tracker, poses, times = run_synthetic.track(
+        ((g, d, seq.stamps[i]) for i, (g, d) in enumerate(frames[:n])), main_path_config(), dev,
+        log=lambda s: None)
+    r = dict(frames=n, pose_gap=float(np.abs(poses - main_poses[:n]).max()),
+             median_frame_ms=statistics.median(times[1:]) * 1e3)
+    _log("12c run_synthetic on phase 4's frames: " + json.dumps(r) + f"; card: {card}")
+    if r["pose_gap"] != 0.0:
+        raise AssertionError(f"12c run_synthetic: poses {r['pose_gap']} from phase 4's")
+    return r
+
+
+def check_vocabulary_app(dev, rendered, card: str, work: Path) -> dict:
+    """12c: `train_vocabulary`'s tree (k = VOCAB_K, depth = VOCAB_DEPTH) and
+    TF-IDF weights on the card's descriptors of VOCAB_FRAMES of phase 4's
+    frames; the saved file loads, and `quantize` of those descriptors
+    through it on the card equals `quantize` on the CPU."""
+    frames = rendered[1]
+    orb = main_path_config().orb
+    descs = [train_vocabulary.image_descriptors(frames[i][0], orb, dev) for i in VOCAB_FRAMES]
+    t = time.perf_counter()
+    vocab = train_vocabulary.build_tree(np.concatenate(descs), VOCAB_K, VOCAB_DEPTH, seed=0)
+    vocab = train_vocabulary.tfidf(vocab, descs, dev)
+    build_s = time.perf_counter() - t
+    path = str(work / "vocab.npz")
+    voc.save_binary(vocab, path)
+    loaded = voc.load_binary(path)
+    data = torch.from_numpy(np.concatenate(descs).view(np.int32))
+    ones = torch.ones(len(data), dtype=torch.bool)
+    w_card = voc.quantize(voc.to_device(loaded, dev), data.to(dev), ones.to(dev)).cpu()
+    w_cpu = voc.quantize(voc.to_device(loaded, torch.device("cpu")), data, ones)
+    r = dict(descriptors=len(data), nodes=int(loaded.children.shape[0]), words=loaded.n_words,
+             weighted_words=int((loaded.word_weight > 0).sum()), build_s=build_s,
+             words_differing=int((w_card != w_cpu).sum()), unassigned=int((w_cpu < 0).sum()))
+    _log("12c train_vocabulary on the card's descriptors: " + json.dumps(r) + f"; card: {card}")
+    if not (r["words"] > VOCAB_K and r["words_differing"] == 0 and r["unassigned"] == 0
+            and r["weighted_words"] > 0):
+        raise AssertionError(f"12c train_vocabulary: {r}")
+    return r
+
+
+def check_trace(dev, rendered, card: str, work: Path) -> dict:
+    """12d: `profiling.trace` around TRACE_FRAMES tracked frames of phase 4
+    (a fresh tracker, frame 0 before the trace), each in an `annotate`
+    range: the Chrome trace exists and holds the labels and, on the card,
+    B1's two kernels."""
+    seq, frames, *_ = rendered
+    tracker = Tracker(main_path_config(), device=dev)
+    tracker.process(*frames[0], float(seq.stamps[0]))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with profiling.trace(str(work / "trace")) as log_dir:
+        for i in TRACE_FRAMES:
+            with profiling.annotate(f"app.frame_{i}"):
+                tracker.process(*frames[i], float(seq.stamps[i]))
+        sync()
+    path = Path(log_dir) / "trace.json"
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    r = dict(trace_mb=path.stat().st_size / 2**20, events=len(events),
+             labels=sum(e.get("name", "").startswith("app.frame_") for e in events),
+             kernel_names=len(kernels),
+             b1_kernels=sorted(k[:60] for k in kernels if "window_match" in k))
+    _log("12d profiling.trace around tracked frames: " + json.dumps(r) + f"; card: {card}")
+    if r["labels"] < len(TRACE_FRAMES):
+        raise AssertionError(f"12d: the trace holds {r['labels']} annotate labels")
+    if dev.type == "cuda" and len(r["b1_kernels"]) < 2:
+        raise AssertionError(f"12d: B1's kernels are not in the trace: {r['b1_kernels']}")
+    return r
+
+
+def run_frame_apps_path(dev, card: str, rendered, main_poses: np.ndarray) -> dict:
+    """Phase 12c-12d on phase 4's frames (counts zeroed before, read after):
+    `run_synthetic`, `train_vocabulary` and the profiler trace."""
+    work = Path(__file__).resolve().parent / "build" / "apps_check"
+    work.mkdir(parents=True, exist_ok=True)
+    t12 = time.perf_counter()
+    _reset_counts()
+    synthetic = check_run_synthetic(dev, rendered, main_poses, card)
+    vocab = check_vocabulary_app(dev, rendered, card, work)
+    trace = check_trace(dev, rendered, card, work)
+    counts = _counts()
+    phase_s = time.perf_counter() - t12
+    _log(f"phase 12c-d on phase 4's frames took {phase_s:.1f} s, launches "
+         f"{json.dumps(counts)}; card: {card}")
+    if dev.type == "cuda" and counts["window_match"] == 0:
+        raise AssertionError("12c-d: run_synthetic and the trace never launched the window "
+                             "matcher")
+    return dict(run_synthetic=synthetic, vocabulary=vocab, trace=trace, launches=counts,
+                phase_s=phase_s)
+
+
 def host_times(dev) -> dict:
     """Host time of each wrapper's `prepare` and `launch`, and of the whole
     wrapper, for B1 at the main path's first shape and B2 at its size."""
@@ -2991,16 +3457,24 @@ def main() -> int:
     b2 = check_b2(dev)
     # Phases 4-8's views render on the CPU while phases 9-11, which render
     # on the card, run; then phases 4-8 run on them.
-    job = start_render(N_FRAMES, LOOP_SEQ_FRAMES, SEG_FRAMES)
+    job = start_render(N_FRAMES, LOOP_SEQ_FRAMES, SEG_RUN_FRAMES, dyn=True)
     try:
-        dyn = run_dynamic_path(dev, card)
+        dyn = run_dynamic_path(dev, card, masked_tracking=False)
         sem = run_semantic_path(dev, card)
-        dense = run_dense_path(dev, card, sem.pop("scene"), sem.pop("params"))
+        scene = sem.pop("scene")
+        dense = run_dense_path(dev, card, scene, sem.pop("params"))
+        apps = run_apps_path(dev, card, scene, dense["functions"].pop("cloud"))
     except BaseException:
         job["pool"].terminate()
         job["pool"].join()
         raise
     rendered = finish_render(job)
+    t9 = time.perf_counter()
+    _reset_counts()
+    dyn["tracking"] = check_masked_tracking(dev, CameraConfig(), card, frames=rendered[5])
+    dyn["launches"] = {k: v + _counts()[k] for k, v in dyn["launches"].items()}
+    _log(f"phase 9c took {time.perf_counter() - t9:.1f} s; launches in phase 9 "
+         f"{json.dumps(dyn['launches'])}; card: {card}")
     main_res = run_main_path(dev, rendered=rendered)
     tracker = main_res.pop("tracker")
     b2_path = run_b2_path(tracker, dev)
@@ -3011,6 +3485,9 @@ def main() -> int:
     scan = run_scan_path(dev, main_res | {"tracker": tracker, "rendered": rendered}, card)
     seg = run_segmented_path(dev, rendered[4], card)
     _log(f"phase 8 took {time.perf_counter() - t8:.1f} s; card: {card}")
+    frame_apps = run_frame_apps_path(dev, card, rendered, main_res["poses"])
+    launches_apps = {k: apps["launches"][k] + frame_apps["launches"][k]
+                     for k in apps["launches"]}
     kernels = [
         dict(name="window_match", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/window_match.cu",
@@ -3027,7 +3504,8 @@ def main() -> int:
              launches_segmented=seg["launches"]["window_match"],
              launches_dynamic=dyn["launches"]["window_match"],
              launches_semantic=sem["launches"]["window_match"],
-             launches_dense=dense["launches"]["window_match"], init_shape=b1["init_shape"],
+             launches_dense=dense["launches"]["window_match"],
+             launches_apps=launches_apps["window_match"], init_shape=b1["init_shape"],
              path="Tracker.process, default config"),
         dict(name="spd_solve", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/spd_solve.cu",
@@ -3043,6 +3521,7 @@ def main() -> int:
              launches_dynamic=dyn["launches"]["spd_solve"],
              launches_semantic=sem["launches"]["spd_solve"],
              launches_dense=dense["launches"]["spd_solve"],
+             launches_apps=launches_apps["spd_solve"],
              path="local_mapping_step, window 12 + 8"),
     ]
     _log(f"summary: build {build_s:.2f} s, main path median {main_res['median_frame_ms']:.2f} "
@@ -3071,7 +3550,10 @@ def main() -> int:
          f"{dense['system']['median_keyframe_frame_ms_plain']:.2f}), the batched consumer "
          f"{dense['batched']['consume_ms']:.2f} ms for {dense['batched']['keyframes']} "
          f"keyframes, stereo ATE {dense['stereo']['ate_m']:.4f} m; phase 11 "
-         f"{dense['phase_s']:.1f} s; card: {card}")
+         f"{dense['phase_s']:.1f} s; a training step of batch {TRAIN_BATCH} "
+         f"{apps['train_app']['ms_per_step']:.2f} ms, rgbd_tum "
+         f"{apps['rgbd_tum']['median_frame_ms']:.2f} ms a frame with semantics and the dense "
+         f"map; phase 12 {apps['phase_s'] + frame_apps['phase_s']:.1f} s; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

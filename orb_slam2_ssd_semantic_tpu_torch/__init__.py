@@ -30,17 +30,30 @@ Ported so far:
   NMS (`semantic/detector.py`), the depth-window and MergeSG fusion
   (`semantic/fusion.py`), the object database (`semantic/object_db.py`)
   and the host metrics of `semantic/consume.py`;
-- the semantic half of the facade: `system.SlamSystem` with
-  `enable_semantics`, its `track_rgbd` running the keyframe consumers,
-  the mode switches, reset, the trajectory writers and the object
-  listing and persistence.
-Refused, not ported yet: dense mapping (`dense/`, the batched consumer
-`semantic/consume.make_batched_consume`), the stereo and monocular front
-ends, map persistence (`io/map_io.py`), training (`semantic/train.py`)
-and the multi-device code (`parallel/`). `SlamSystem` raises
-NotImplementedError for `enable_dense_map`, a `mesh`, `track_stereo`,
-`track_monocular`, `save_map`, `load_map`, `save_octomap` and
-`load_octomap`; so do `LoopCloser`'s `mesh` and the sharded global BA.
+- the facade `system.SlamSystem`: `track_rgbd` with the keyframe
+  consumers (semantics with `enable_semantics`, the occupancy map with
+  `enable_dense_map`), the stereo and monocular front ends
+  (`track_stereo`, `track_monocular`), the mode switches, reset, the
+  trajectory writers, the object listing and persistence;
+- dense mapping (`dense/`: keyframe clouds, the ground split, the dense
+  grid and `BlockGridMap`) and the batched keyframe consumer
+  (`semantic/consume.make_batched_consume`);
+- persistence of the sparse map (`io/map_io.py`) and of the occupancy
+  map, in files that load in either package;
+- training of the SSDLite detector (`semantic/train.py`: anchor matching,
+  the multibox loss, an Adam step over every array, the synthetic
+  detection batches);
+- the native prefetching TUM loader (`io/native_loader.py`, built from
+  `cpp/tum_loader.cpp` at first use) and the profiler helpers
+  (`utils/profiling.py`);
+- the offline apps (`apps/`): `run_synthetic`, `rgbd_tum`,
+  `detect_locate`, `cloud_to_occupancy`, `train_ssdlite` and
+  `train_vocabulary`, each on the card unless given `--device cpu`.
+Refused or absent, not ported yet: a device mesh (the multi-device code,
+`parallel/`: `SlamSystem` and `LoopCloser` raise NotImplementedError for
+a `mesh`, and so does the sharded global BA), the live camera app
+(`apps/live_rgbd.py`, with `ops/register.py` and `camera.distort`) and
+the viewers (`viz.py`, `apps/web_viewer.py`).
 """
 
 __version__ = "0.1.0"

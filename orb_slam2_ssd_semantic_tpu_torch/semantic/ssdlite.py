@@ -71,7 +71,13 @@ class Conv(nn.Conv2d):
 
 class BatchNorm(nn.Module):
     """`flax.linen.BatchNorm(use_running_average=True)`: scale, bias and the
-    running mean and variance, and nothing else (no batch counter)."""
+    running mean and variance, and nothing else (no batch counter).
+
+    Training (`semantic/train.py`) differentiates the running statistics
+    too, as JAX's `value_and_grad` over the whole Flax variables dict
+    does; `F.batch_norm` takes no gradient there, so when a statistic
+    requires one the layer computes Flax's arithmetic,
+    `(x - mean) * (scale * rsqrt(var + eps)) + bias`, instead."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -81,6 +87,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(ch))
 
     def forward(self, x):
+        if torch.is_grad_enabled() and (self.running_mean.requires_grad
+                                        or self.running_var.requires_grad):
+            mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+            return ((x - self.running_mean[:, None, None]) * mul[:, None, None]
+                    + self.bias[:, None, None])
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                             training=False, eps=BN_EPS)
 
