@@ -6,10 +6,10 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught). They run in the
-order 1-3, 9 (without 9c), 10, 11, 12a-c, 9c, 4-8, 12c-d: the views of
-phases 4-8 and 9c render on the CPU in a pool of worker processes at a
-lower priority while phases 9-12, which render on the card or need no
-view, run.
+order 1-3, 9 (without 9c), 10, 11, 12a-c, 9c, 4-8, 12c-d, 13: the views
+of phases 4-8 and 9c render on the CPU in a pool of worker processes at
+a lower priority while phases 9-12, which render on the card or need no
+view, run; phase 13 needs phase 4's views and 12c's files.
   1. print the card (nvidia-smi) and torch; build the CUDA kernels from
      `orb_slam2_ssd_semantic_tpu_torch/csrc/` with nvcc (one process per
      source, all at once) into `build/torch_kernels/`; time an empty
@@ -209,7 +209,30 @@ view, run.
         3: the file loads, and `quantize` on the card equals the CPU's);
      d. `utils/profiling.trace` around 4 tracked frames in `annotate`
         ranges: the Chrome trace holds the labels and B1's two kernels;
- 13. one JSON line of per-kernel numbers, the card's name and power limit,
+ 13. the live app and the rest (counts zeroed before, read after; B1's
+     and B2's launches here are `launches_live`):
+     a. `ops/register.register_depth_to_color` on phase 10's 640x480 depth
+        of view 24 through a 0.025 m baseline with a 1 degree yaw, on the
+        card and on the CPU: the same pixels filled on >= 99.99% of them,
+        depths within 1e-5 m; the identity returns the input within 1e-5
+        m; a 40 px square at 1 m before a 3 m wall keeps its near z on >=
+        95% of its pixels (the scatter-min); ms a call;
+     b. `undistort_image` on that view, gray and RGB, with
+        `tests/test_register.py`'s k1 = -0.2: the card within 1e-3 gray
+        levels of the CPU; zero coefficients return the input within 1e-3;
+     c. `apps/live_rgbd.run` on phase 4's first 24 frames with
+        undistortion and an identity registration read from an npz
+        (`load_registration`), `live_rgbd.main --source synthetic` on 2
+        frames, and `run` on the `watch:` source over a spool of 8 of
+        12c's TUM PNG pairs (1.5 s idle timeout): every frame OK, ATE
+        under phase 4's 0.01 m, the trajectory files and `map.npz`
+        written, the map read back through `io/map_io.load_map`; ms a
+        frame, and the launches and syncs of 2 profiled frames;
+     d. `mapping/pose_graph.optimize_pose_graph_sim3` on
+        `tests/test_loop_reloc.py`'s scale-drift graph (10 keyframes, 11
+        edges, 30 iterations): log-scales and poses within 1e-3 of ground
+        truth, and within 1e-5 of a CPU run;
+ 14. one JSON line of per-kernel numbers, the card's name and power limit,
      and the result line last.
 
 Without a CUDA card it exits non-zero and prints no result.
@@ -230,6 +253,7 @@ import dataclasses
 import json
 import multiprocessing
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -244,6 +268,7 @@ import torch
 from orb_slam2_ssd_semantic_tpu_torch.apps import (
     cloud_to_occupancy,
     detect_locate,
+    live_rgbd,
     rgbd_tum,
     run_synthetic,
     train_ssdlite,
@@ -277,6 +302,7 @@ from orb_slam2_ssd_semantic_tpu_torch.frontend import extractor
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
 from orb_slam2_ssd_semantic_tpu_torch.io import device_render
 from orb_slam2_ssd_semantic_tpu_torch.io import vocabulary as voc
+from orb_slam2_ssd_semantic_tpu_torch.io.map_io import load_map
 from orb_slam2_ssd_semantic_tpu_torch.io.tum import read_trajectory, write_trajectory
 from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import (
     BoxRoom,
@@ -296,13 +322,16 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.loop_closing import (
     map_median_reproj_error,
 )
 from orb_slam2_ssd_semantic_tpu_torch.mapping.pose_graph import (
+    Sim3Graph,
     build_graph_arrays,
     optimize_pose_graph,
     optimize_pose_graph_pcg,
+    optimize_pose_graph_sim3,
 )
 from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build, cuda_match, cuda_solve
 from orb_slam2_ssd_semantic_tpu_torch.ops.homography import sample_minimal_sets
 from orb_slam2_ssd_semantic_tpu_torch.ops.match import window_mask
+from orb_slam2_ssd_semantic_tpu_torch.ops.register import register_depth_to_color, undistort_image
 from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker
 from orb_slam2_ssd_semantic_tpu_torch.tracking import tracker as tracker_mod
 from orb_slam2_ssd_semantic_tpu_torch.tracking.reloc import relocalize
@@ -542,6 +571,34 @@ LOCATE_VIEWS, LOCATE_TOL = (0, 12, 24, 36), 1e-4
 APP_FRAMES = 24
 VOCAB_FRAMES, VOCAB_K, VOCAB_DEPTH = tuple(range(0, 96, 12)), 10, 3
 TRACE_FRAMES = range(1, 5)
+# Phase 13 (the live app and the rest). 13a: `register_depth_to_color` on
+# phase 10's view REG_VIEW through a REG_BASELINE m baseline with a
+# REG_YAW_DEG yaw, card against CPU: the same pixels filled on at least
+# REG_MATCH of them and depths within REG_TOL where both have one
+# (`tests/test_register.py`'s identity limit), the identity within REG_TOL
+# of the input, and a REG_PATCH px square at 1 m before a 3 m wall kept
+# whole (at least REG_NEAR_SHARE of its pixels nearest). 13b:
+# `undistort_image` on that view, gray and RGB, with
+# `tests/test_register.py`'s k1, card against CPU within UND_TOL gray
+# levels; zero coefficients give the input within UND_TOL (that test's).
+# 13c: `live_rgbd.run` on phase 4's first LIVE_FRAMES frames with
+# undistortion and an identity registration at phase 4's intrinsics;
+# `live_rgbd.main` on LIVE_SYNTHETIC_FRAMES synthetic frames; the
+# `watch:` source over LIVE_WATCH_FRAMES of 12c's TUM PNGs with a
+# LIVE_IDLE_S idle timeout; every frame OK and phase 4's ATE gate in each.
+# 13d: `tests/test_loop_reloc.py`'s scale-drift Sim(3) graph (SIM3_F
+# keyframes, SIM3_ITERS iterations), JAX's gate against ground truth and
+# SIM3_CPU_TOL against a CPU run.
+REG_VIEW, REG_BASELINE, REG_YAW_DEG = DENSE_VIEW, 0.025, 1.0
+REG_TOL, REG_MATCH, REG_PATCH, REG_NEAR_SHARE = 1e-5, 0.9999, 40, 0.95
+UND_K1, UND_TOL = -0.2, 1e-3
+# Cut to fit the script's time (the whole script took 1039 s on a host
+# where the main path took 256 ms a frame): the synthetic source renders
+# its views on the host, ~2.3 s each, so it tracks 2 frames (8 took 44 s
+# for all of 13c), and the watch run 8.
+LIVE_FRAMES, LIVE_SYNTHETIC_FRAMES, LIVE_WATCH_FRAMES, LIVE_IDLE_S = 24, 2, 8, 1.5
+LIVE_PROFILE_FRAMES = range(12, 14)
+SIM3_F, SIM3_ITERS, SIM3_GT_TOL, SIM3_CPU_TOL = 10, 30, 1e-3, 1e-5
 
 
 def _log(msg: str) -> None:
@@ -3411,6 +3468,280 @@ def run_frame_apps_path(dev, card: str, rendered, main_poses: np.ndarray) -> dic
                 phase_s=phase_s)
 
 
+# ---- phase 13: the live app and the rest ----------------------------------------
+
+def check_registration(dev, scene: dict, card: str) -> dict:
+    """13a: `register_depth_to_color` on phase 10's view REG_VIEW (metres)
+    through a small baseline and yaw, on `dev` and on the CPU; the
+    identity; a near square before a far wall (the nearest z must win
+    where both land)."""
+    cam = CameraConfig()
+    depth = scene["depth_host"][REG_VIEW].astype(np.float32) * 1e-3
+    h, w = depth.shape
+    T_cd = se3.se3_exp(torch.tensor([REG_BASELINE, 0.0, 0.0, 0.0, np.deg2rad(REG_YAW_DEG),
+                                     0.0])).numpy()
+    wall = np.full((h, w), 3.0, np.float32)
+    y0, x0 = (h - REG_PATCH) // 2, (w - REG_PATCH) // 2
+    wall[y0:y0 + REG_PATCH, x0:x0 + REG_PATCH] = 1.0
+
+    def reg(d, T, device):
+        return register_depth_to_color(d, T, cam, cam, h, w, device=device).cpu().numpy()
+
+    cpu = torch.device("cpu")
+    a, b = reg(depth, T_cd, dev), reg(depth, T_cd, cpu)
+    both = (a > 0) & (b > 0)
+    ident = reg(depth, np.eye(4, dtype=np.float32), dev)
+    occ, occ_c = reg(wall, T_cd, dev), reg(wall, T_cd, cpu)
+    near = (occ > 0) & (occ < 2.0)
+    depth_t, T_t = torch.from_numpy(depth).to(dev), torch.from_numpy(T_cd).to(dev)
+    r = dict(shape=[h, w], filled=int((a > 0).sum()), filled_cpu=int((b > 0).sum()),
+             same_pixels_share=float(((a > 0) == (b > 0)).mean()),
+             depth_gap_m=float(np.abs(a[both] - b[both]).max()),
+             identity_gap_m=float(np.abs(ident - depth).max()),
+             near_pixels=int(near.sum()), patch_pixels=REG_PATCH ** 2,
+             near_z=[float(occ[near].min()), float(occ[near].max())],
+             occluder_same_pixels=bool(np.array_equal(occ > 0, occ_c > 0)),
+             occluder_gap_m=float(np.abs(occ - occ_c).max()))
+    if dev.type == "cuda":
+        r["ms"] = _time_ms(lambda: register_depth_to_color(depth_t, T_t, cam, cam, h, w))
+    _log("13a register_depth_to_color, card against CPU: " + json.dumps(r) + f"; limits: "
+         f"{REG_MATCH} of pixels alike, {REG_TOL} m, a near square kept on {REG_NEAR_SHARE} of "
+         f"its pixels; card: {card}")
+    if not (r["same_pixels_share"] >= REG_MATCH and r["depth_gap_m"] <= REG_TOL
+            and r["identity_gap_m"] <= REG_TOL and r["filled"] > 0.5 * h * w):
+        raise AssertionError(f"13a registration: {r}")
+    if not (r["near_pixels"] >= REG_NEAR_SHARE * r["patch_pixels"] and r["near_z"][1] < 1.1
+            and r["occluder_same_pixels"] and r["occluder_gap_m"] <= REG_TOL):
+        raise AssertionError(f"13a registration: the near square was not kept: {r}")
+    return r
+
+
+def check_undistortion(dev, scene: dict, card: str) -> dict:
+    """13b: `undistort_image` on phase 10's view REG_VIEW, gray and as RGB,
+    with k1 = UND_K1, on `dev` and on the CPU; with no distortion the
+    input comes back."""
+    gray = scene["gray_host"][REG_VIEW]
+    cam, plain = CameraConfig(k1=UND_K1), CameraConfig()
+    r = {}
+    for name, img in (("gray", gray), ("rgb", np.repeat(gray[..., None], 3, axis=-1))):
+        out = undistort_image(img, cam, device=dev).cpu().numpy()
+        out_c = undistort_image(img, cam, device="cpu").numpy()
+        same = undistort_image(img, plain, device=dev).cpu().numpy()
+        r[name] = dict(shape=list(out.shape), gap_cpu=float(np.abs(out - out_c).max()),
+                       moved_mean=float(np.abs(out - img).mean()),
+                       identity_gap=float(np.abs(same - img).max()))
+    if dev.type == "cuda":
+        rgb_t = torch.from_numpy(np.repeat(gray[..., None], 3, axis=-1)).to(dev)
+        r["rgb"]["ms"] = _time_ms(lambda: undistort_image(rgb_t, cam))
+    _log("13b undistort_image, card against CPU: " + json.dumps(r) + f"; limit: {UND_TOL} "
+         f"gray levels; card: {card}")
+    for name, v in r.items():
+        if not (v["gap_cpu"] <= UND_TOL and v["identity_gap"] <= UND_TOL
+                and v["moved_mean"] > 1.0):
+            raise AssertionError(f"13b undistortion ({name}): {v}")
+    return r
+
+
+class _MarkedFrames:
+    """Frames for `live_rgbd.run` as (rgb, depth, stamp): the host clock at
+    each frame's request (so the differences are whole frames: the
+    undistortion, the registration and `track_rgbd`), and a profiler over
+    LIVE_PROFILE_FRAMES on the card."""
+
+    def __init__(self, items, dev):
+        self.items, self.marks = items, []
+        self.prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        ) if dev.type == "cuda" else None
+
+    def __iter__(self):
+        for i, item in enumerate(self.items):
+            if self.prof is not None and i == LIVE_PROFILE_FRAMES.start:
+                self.prof.start()
+            if self.prof is not None and i == LIVE_PROFILE_FRAMES.stop:
+                self.prof.stop()
+            self.marks.append(time.perf_counter())
+            yield item
+        self.marks.append(time.perf_counter())
+
+    def frame_ms(self) -> list:
+        """Whole-frame ms of the frames outside the profiled window."""
+        ms = np.diff(self.marks) * 1e3
+        return [float(v) for i, v in enumerate(ms) if i not in LIVE_PROFILE_FRAMES]
+
+
+def _app_run_summary(res, gt_positions: np.ndarray, out: Path, cfg: SlamConfig, dev) -> dict:
+    """Statuses, ATE, the files written and the map read back through
+    `io/map_io.load_map`."""
+    tr = res.system.tracker
+    n = len(tr.stats)
+    state = load_map(str(out / "map.npz"), cfg, dev)
+    return dict(frames=n, statuses_ok=sum(s["status"] == "OK" for s in tr.stats),
+                ate_m=evaluate_ate_xyz(tr.camera_positions(), gt_positions[:n]).rmse,
+                files=sorted(p.name for p in out.iterdir()),
+                camera_lines=len(read_trajectory(str(out / "CameraTrajectory.txt"))[0]),
+                keyframes=tr._n_kfs, map_kfs=int(state.n_kfs), map_points=int(state.n_points),
+                points=int(tr.state.n_points),
+                median_track_ms=statistics.median(res.frame_s[1:]) * 1e3)
+
+
+def _check_app_run(label: str, r: dict, n: int) -> None:
+    want = {"CameraTrajectory.txt", "KeyFrameTrajectory.txt", "map.npz"}
+    if not (r["frames"] == r["statuses_ok"] == r["camera_lines"] == n
+            and r["ate_m"] < SEM_ATE_GATE):
+        raise AssertionError(f"13c {label}: {r}")
+    if not (want <= set(r["files"]) and r["map_kfs"] == r["keyframes"] >= 1
+            and r["map_points"] == r["points"]):
+        raise AssertionError(f"13c {label}: the saved map does not read back: {r}")
+
+
+def check_live_app(dev, rendered, scene: dict, card: str, work: Path) -> dict:
+    """13c (the launch counts zeroed before): `live_rgbd.run` on phase 4's
+    frames with undistortion and an identity registration
+    (`load_registration` of an npz at phase 4's intrinsics);
+    `live_rgbd.main` on the synthetic source; `run` on the `watch:` source
+    over a spool of TUM PNGs (12c's, or written here from phase 10's
+    frames)."""
+    seq, frames, *_ = rendered
+    cfg = main_path_config()
+    cam = cfg.camera
+    (work / "settings.json").write_text(cfg.to_json())
+    np.savez(work / "register.npz", T_cd=np.eye(4, dtype=np.float32), fx=cam.fx, fy=cam.fy,
+             cx=cam.cx, cy=cam.cy)
+    register = live_rgbd.load_registration(str(work / "register.npz"), cfg)
+    quiet = lambda s: None  # noqa: E731
+    marked = _MarkedFrames([(np.clip(np.repeat(g[..., None], 3, axis=-1), 0, 255).astype(np.uint8),
+                             d, float(seq.stamps[i])) for i, (g, d) in
+                            enumerate(frames[:LIVE_FRAMES])], dev)
+    t = time.perf_counter()
+    res = live_rgbd.run(marked, cfg, undistort=True, register=register, out=str(work / "run"),
+                        device=dev, log=quiet)
+    run_s = time.perf_counter() - t
+    counts_run = _counts()
+    r = dict(run=_app_run_summary(res, seq.gt_positions(), work / "run", cfg, dev) | dict(
+        median_frame_ms=statistics.median(marked.frame_ms()[1:]), wall_s=run_s,
+        b1_launches_per_frame=counts_run["window_match"] / LIVE_FRAMES))
+    if marked.prof is not None:
+        r["run"]["profile"] = _device_breakdown(marked.prof, len(LIVE_PROFILE_FRAMES),
+                                                r["run"]["median_frame_ms"])
+    _check_app_run("run", r["run"], LIVE_FRAMES)
+
+    t = time.perf_counter()
+    res = live_rgbd.main(["--source", "synthetic", "--frames", str(LIVE_SYNTHETIC_FRAMES),
+                          "--settings", str(work / "settings.json"), "--out",
+                          str(work / "synthetic")] + ([] if dev.type == "cuda" else
+                                                      ["--device", "cpu"]))
+    r["synthetic"] = _app_run_summary(res, seq.gt_positions(), work / "synthetic", cfg, dev) | dict(
+        wall_s=time.perf_counter() - t)
+    _check_app_run("main --source synthetic", r["synthetic"], LIVE_SYNTHETIC_FRAMES)
+
+    spool, tum = work / "spool", work.parent / "apps_check" / "tum"
+    shutil.rmtree(spool, ignore_errors=True)
+    names = sorted(p.name for p in (tum / "rgb").glob("*.png"))[:LIVE_WATCH_FRAMES] \
+        if (tum / "rgb").is_dir() else []
+    if len(names) == LIVE_WATCH_FRAMES and all((tum / "depth" / n).exists() for n in names):
+        for sub in ("rgb", "depth"):
+            (spool / sub).mkdir(parents=True)
+            for n in names:
+                shutil.copy(tum / sub / n, spool / sub / n)
+        shutil.copy(tum / "groundtruth.txt", spool / "groundtruth.txt")
+        source = "12c's TUM PNGs"
+    else:
+        write_tum_sequence(spool, {k: scene[k][:LIVE_WATCH_FRAMES]
+                                   for k in ("gray_host", "depth_host", "poses")})
+        source = "phase 10's frames"
+    t = time.perf_counter()
+    res = live_rgbd.run(live_rgbd.iter_watch(str(spool), cam.depth_map_factor,
+                                             idle_timeout_s=LIVE_IDLE_S),
+                        cfg, out=str(work / "watch"), device=dev, log=quiet)
+    gt = read_trajectory(str(spool / "groundtruth.txt"))[1]
+    r["watch"] = _app_run_summary(res, gt, work / "watch", cfg, dev) | dict(
+        source=source, spool_frames=LIVE_WATCH_FRAMES, wall_s=time.perf_counter() - t)
+    _check_app_run("watch", r["watch"], LIVE_WATCH_FRAMES)
+    _log("13c the live app: " + json.dumps(r) + f"; limits: every frame OK, ATE < "
+         f"{SEM_ATE_GATE} m; card: {card}")
+    if dev.type == "cuda" and counts_run["window_match"] == 0:
+        raise AssertionError("13c: the live app never launched the window matcher")
+    return r
+
+
+def sim3_drift_problem(seed: int = 0):
+    """`tests/test_loop_reloc.py`'s scale-drift graph: SIM3_F keyframes on a
+    circle, poses perturbed by 0.05 rad / m and log-scales by 0.15
+    (keyframe 0 exact), 11 exact edges with two loop edges."""
+    rng = np.random.default_rng(seed)
+    F = SIM3_F
+    edges = [(i, i + 1) for i in range(F - 1)] + [(0, F - 1), (2, 7)]
+    xi = np.stack([[np.cos(2 * np.pi * i / F), 0.05 * i, np.sin(2 * np.pi * i / F), 0.0,
+                    2 * np.pi * i / F * 0.3, 0.0] for i in range(F)]).astype(np.float32)
+    T_gt = se3.se3_exp(torch.from_numpy(xi)).numpy()
+    T0 = T_gt.copy()
+    T0[1:] = se3.se3_exp(torch.from_numpy(
+        rng.normal(0, 0.05, (F - 1, 6)).astype(np.float32))).numpy() @ T0[1:]
+    log_s0 = np.concatenate([[0.0], rng.normal(0, 0.15, F - 1)]).astype(np.float32)
+    T_ji = np.stack([T_gt[j] @ np.linalg.inv(T_gt[i]) for i, j in edges]).astype(np.float32)
+    E = len(edges)
+    graph = dict(edge_i=np.array([e[0] for e in edges]), edge_j=np.array([e[1] for e in edges]),
+                 s_ji=np.ones(E, np.float32), T_ji=T_ji, weight=np.ones(E, np.float32),
+                 valid=np.ones(E, bool))
+    return T_gt, T0, log_s0, graph
+
+
+def check_sim3_graph(dev, card: str) -> dict:
+    """13d: `optimize_pose_graph_sim3` on the scale-drift problem on `dev`
+    and on the CPU."""
+    T_gt, T0, log_s0, graph = sim3_drift_problem()
+    out = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        g = Sim3Graph(**{k: torch.from_numpy(v).to(d) for k, v in graph.items()})
+        (T, ls), ms = _timed(lambda: optimize_pose_graph_sim3(
+            torch.from_numpy(T0).to(d), torch.from_numpy(log_s0).to(d),
+            torch.ones(SIM3_F, dtype=torch.bool, device=d), g, iters=SIM3_ITERS), d)
+        out[name] = (T.cpu().numpy(), ls.cpu().numpy(), ms)
+    (T, ls, ms), (T_c, ls_c, ms_c) = out["card"], out["cpu"]
+    r = dict(keyframes=SIM3_F, edges=len(graph["valid"]), iters=SIM3_ITERS,
+             log_scale_max=float(np.abs(ls).max()), pose_gap_gt=float(np.abs(T - T_gt).max()),
+             pose_gap_cpu=float(np.abs(T - T_c).max()),
+             log_scale_gap_cpu=float(np.abs(ls - ls_c).max()),
+             log_scale_max_initial=float(np.abs(log_s0).max()), ms=ms, cpu_ms=ms_c)
+    _log("13d optimize_pose_graph_sim3, card against ground truth and CPU: " + json.dumps(r)
+         + f"; limits: {SIM3_GT_TOL} (scales, poses), {SIM3_CPU_TOL} against the CPU; "
+         f"card: {card}")
+    if not (r["log_scale_max"] < SIM3_GT_TOL and r["pose_gap_gt"] < SIM3_GT_TOL
+            and r["pose_gap_cpu"] <= SIM3_CPU_TOL and r["log_scale_gap_cpu"] <= SIM3_CPU_TOL):
+        raise AssertionError(f"13d Sim(3) pose graph: {r}")
+    return r
+
+
+def run_live_path(dev, card: str, rendered, scene: dict) -> dict:
+    """Phase 13 (counts zeroed before, read after): registration,
+    undistortion, the live app and the Sim(3) pose graph."""
+    work = Path(__file__).resolve().parent / "build" / "live_check"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t13 = time.perf_counter()
+    _reset_counts()
+    times = {}
+    t = time.perf_counter()
+    reg = check_registration(dev, scene, card)
+    times["13a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    und = check_undistortion(dev, scene, card)
+    times["13b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    app = check_live_app(dev, rendered, scene, card, work)
+    times["13c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sim3 = check_sim3_graph(dev, card)
+    times["13d"] = time.perf_counter() - t
+    counts = _counts()
+    phase_s = time.perf_counter() - t13
+    _log(f"phase 13 took {phase_s:.1f} s ({json.dumps(times)}), launches "
+         f"{json.dumps(counts)}; card: {card}")
+    return dict(registration=reg, undistortion=und, app=app, sim3=sim3, launches=counts,
+                phase_s=phase_s, times=times)
+
+
 def host_times(dev) -> dict:
     """Host time of each wrapper's `prepare` and `launch`, and of the whole
     wrapper, for B1 at the main path's first shape and B2 at its size."""
@@ -3486,6 +3817,7 @@ def main() -> int:
     seg = run_segmented_path(dev, rendered[4], card)
     _log(f"phase 8 took {time.perf_counter() - t8:.1f} s; card: {card}")
     frame_apps = run_frame_apps_path(dev, card, rendered, main_res["poses"])
+    live = run_live_path(dev, card, rendered, scene)
     launches_apps = {k: apps["launches"][k] + frame_apps["launches"][k]
                      for k in apps["launches"]}
     kernels = [
@@ -3505,7 +3837,8 @@ def main() -> int:
              launches_dynamic=dyn["launches"]["window_match"],
              launches_semantic=sem["launches"]["window_match"],
              launches_dense=dense["launches"]["window_match"],
-             launches_apps=launches_apps["window_match"], init_shape=b1["init_shape"],
+             launches_apps=launches_apps["window_match"],
+             launches_live=live["launches"]["window_match"], init_shape=b1["init_shape"],
              path="Tracker.process, default config"),
         dict(name="spd_solve", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/spd_solve.cu",
@@ -3522,6 +3855,7 @@ def main() -> int:
              launches_semantic=sem["launches"]["spd_solve"],
              launches_dense=dense["launches"]["spd_solve"],
              launches_apps=launches_apps["spd_solve"],
+             launches_live=live["launches"]["spd_solve"],
              path="local_mapping_step, window 12 + 8"),
     ]
     _log(f"summary: build {build_s:.2f} s, main path median {main_res['median_frame_ms']:.2f} "
@@ -3553,7 +3887,11 @@ def main() -> int:
          f"{dense['phase_s']:.1f} s; a training step of batch {TRAIN_BATCH} "
          f"{apps['train_app']['ms_per_step']:.2f} ms, rgbd_tum "
          f"{apps['rgbd_tum']['median_frame_ms']:.2f} ms a frame with semantics and the dense "
-         f"map; phase 12 {apps['phase_s'] + frame_apps['phase_s']:.1f} s; card: {card}")
+         f"map; phase 12 {apps['phase_s'] + frame_apps['phase_s']:.1f} s; live_rgbd "
+         f"{live['app']['run']['median_frame_ms']:.2f} ms a frame with undistortion and "
+         f"registration, register_depth_to_color {live['registration']['ms']:.4f} ms, "
+         f"undistort_image (RGB) {live['undistortion']['rgb']['ms']:.4f} ms, the Sim(3) graph "
+         f"{live['sim3']['ms']:.1f} ms; phase 13 {live['phase_s']:.1f} s; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

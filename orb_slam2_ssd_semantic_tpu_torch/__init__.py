@@ -6,10 +6,10 @@ same path there. Plain tensor code is PyTorch; the JAX package's Pallas
 kernels are hand-written CUDA C++ for Hopper (`csrc/`, built with nvcc
 on first use, see `ops/cuda_match.py` and `ops/cuda_solve.py`).
 
-Importing this package loads neither JAX nor Triton, and nothing of the
-JAX package: the host-only modules it needs (`config`, `io/synthetic`,
-`io/tum`, `eval/ate`, `utils/metrics`, `io/artifacts` and the numpy half
-of `io/vocabulary`) are kept as copies here.
+Importing this package loads neither JAX, Triton nor matplotlib, and
+nothing of the JAX package: the host-only modules it needs (`config`,
+`io/synthetic`, `io/tum`, `eval/ate`, `utils/metrics`, `io/artifacts`
+and the numpy half of `io/vocabulary`) are kept as copies here.
 
 Ported so far:
 - RGB-D tracking with local mapping (`tracking.tracker.Tracker.process`);
@@ -48,12 +48,18 @@ Ported so far:
   (`utils/profiling.py`);
 - the offline apps (`apps/`): `run_synthetic`, `rgbd_tum`,
   `detect_locate`, `cloud_to_occupancy`, `train_ssdlite` and
-  `train_vocabulary`, each on the card unless given `--device cpu`.
-Refused or absent, not ported yet: a device mesh (the multi-device code,
-`parallel/`: `SlamSystem` and `LoopCloser` raise NotImplementedError for
-a `mesh`, and so does the sharded global BA), the live camera app
-(`apps/live_rgbd.py`, with `ops/register.py` and `camera.distort`) and
-the viewers (`viz.py`, `apps/web_viewer.py`).
+  `train_vocabulary`, each on the card unless given `--device cpu`;
+- the live RGB-D app (`apps/live_rgbd.py`: the synthetic, `watch:DIR` and
+  `v4l:INDEX` sources) with depth registration and undistortion on the
+  device (`ops/register.py`, `geometry/camera.distort`);
+- the monocular Sim(3) pose graph
+  (`mapping/pose_graph.optimize_pose_graph_sim3` with `Sim3Graph`);
+- the viewers: `viz.py` (PNG plots, `draw_trajectory_main`) and the live
+  web dashboard `apps/web_viewer.py`; they need matplotlib, which this
+  package's import does not load.
+Refused, not ported yet: the multi-device code alone (`parallel/` and
+every `mesh=`: `SlamSystem` and `LoopCloser` raise NotImplementedError for
+a `mesh`, and so does the sharded global BA).
 """
 
 __version__ = "0.1.0"

@@ -48,6 +48,12 @@ def scale_factors(cfg: OrbConfig, device=None) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
+def sigma2_per_level(cfg: OrbConfig, device=None) -> torch.Tensor:
+    """(L,) per-level variance scale^2l (the reference's mvLevelSigma2),
+    the measurement covariance that weights BA residuals."""
+    return scale_factors(cfg, device) ** 2
+
+
 def extract(img: torch.Tensor, cfg: OrbConfig) -> Features:
     """ORB features of a gray image (H, W) float32 in [0, 255]; coordinates
     in level-0 pixels with the half-pixel-centre level mapping."""

@@ -1,11 +1,18 @@
-"""Pinhole camera model on tensors: projection, back-projection,
-undistortion (counterpart of the JAX package's `geometry/camera.py`)."""
+"""Pinhole camera model on tensors: the intrinsics matrix, projection,
+back-projection, distortion and undistortion (counterpart of the JAX
+package's `geometry/camera.py`)."""
 
 from __future__ import annotations
 
 import torch
 
 from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig
+
+
+def intrinsics_matrix(cam: CameraConfig, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The 3x3 pinhole matrix K."""
+    return torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
+                        dtype=dtype, device=device)
 
 
 def project(pts_cam: torch.Tensor, cam: CameraConfig):
@@ -29,6 +36,16 @@ def in_image(uv: torch.Tensor, cam: CameraConfig, border: float = 0.0) -> torch.
     """(..., 2) -> bool mask of points inside the image bounds."""
     u, v = uv[..., 0], uv[..., 1]
     return (u >= border) & (u < cam.width - border) & (v >= border) & (v < cam.height - border)
+
+
+def distort(uv_norm: torch.Tensor, cam: CameraConfig) -> torch.Tensor:
+    """Apply radial/tangential distortion to normalized coords (..., 2)."""
+    x, y = uv_norm[..., 0], uv_norm[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + cam.k1 * r2 + cam.k2 * r2 * r2 + cam.k3 * r2 * r2 * r2
+    xd = x * radial + 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
 
 
 def undistort_points(uv: torch.Tensor, cam: CameraConfig, iters: int = 5) -> torch.Tensor:

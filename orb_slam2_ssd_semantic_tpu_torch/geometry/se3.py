@@ -252,6 +252,17 @@ def sim3_log(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([rho, phi, sigma[..., None]], dim=-1)
 
 
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (x, y, z, w) (TUM order) -> rotation matrix (..., 3, 3)."""
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-32)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> quaternion (x, y, z, w), branch-free Shepperd."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]

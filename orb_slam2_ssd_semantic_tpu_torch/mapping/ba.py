@@ -8,7 +8,10 @@ Gauss-Newton step: residuals and analytic Jacobians as component lists of
 one index_add over (w, slot) keys, the reduced camera system
 S = Hcc - Hcp Hpp^-1 Hcp', its damped solve, and point back-substitution.
 The solve goes through the SPD kernel (`ops/cuda_solve.py`) when
-6W <= 128, else torch.linalg.solve — the JAX package's routing. Two
+6W <= 128, else torch.linalg.solve — the JAX package's routing. With
+`ba_reduction_dtype="bfloat16"` the two Schur products take operands
+rounded to bfloat16 and multiply them in f32 (exact for bf16 values),
+which is what a TPU's default matmul precision does. Two
 phases (Huber, then clean after a chi2 gate) with best-state tracking
 and gain-based early exit; each early-exit test is one host sync.
 """
@@ -113,8 +116,21 @@ def solve_reduced(S_mat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve(S_mat, rhs)
 
 
+def _reduction_operand(dtype: str):
+    """The rounding applied to the Schur products' operands: none for
+    "float32"; for "bfloat16" a round trip through bfloat16, so that the
+    f32 matmul (TF32 off) sums exact products of bf16 values with f32
+    accumulation, as a TPU's `Precision.DEFAULT` does on every device."""
+    if dtype == "float32":
+        return lambda x: x
+    if dtype == "bfloat16":
+        return lambda x: x.to(torch.bfloat16).to(torch.float32)
+    raise ValueError(f"ba_reduction_dtype must be 'float32' or 'bfloat16', not {dtype!r}")
+
+
 def local_bundle_adjust(prob: BAProblem, cam: CameraConfig,
                         cfg: OptimizerConfig = OptimizerConfig()) -> BAResult:
+    schur_operand = _reduction_operand(cfg.ba_reduction_dtype)
     W, K = prob.point_slot.shape
     N = prob.points.shape[0]
     dev = prob.points.device
@@ -172,14 +188,15 @@ def local_bundle_adjust(prob: BAProblem, cam: CameraConfig,
 
         A = [[sum(Hcp[i * 3 + b] * Hpp_inv[b, c][None, :] for b in range(3)) for c in range(3)]
              for i in range(6)]
-        A_mat = [torch.stack([A[i][c] for i in range(6)], 0).reshape(6 * W, N) for c in range(3)]
-        H_mat = [torch.stack([Hcp[i * 3 + c] for i in range(6)], 0).reshape(6 * W, N)
+        A_mat = [schur_operand(torch.stack([A[i][c] for i in range(6)], 0).reshape(6 * W, N))
                  for c in range(3)]
+        H_mat = [schur_operand(torch.stack([Hcp[i * 3 + c] for i in range(6)], 0)
+                               .reshape(6 * W, N)) for c in range(3)]
         S_mat = -sum(A_mat[c] @ H_mat[c].T for c in range(3))  # (6W, 6W) iw order
         Sblk = S_mat.reshape(6, W, 6, W)
         Sblk[:, wi, :, wi] += Hcc
         S_mat = Sblk.reshape(6 * W, 6 * W)
-        rhs = b_c.T - sum((A_mat[c] @ b_p[c]).reshape(6, W) for c in range(3))
+        rhs = b_c.T - sum((A_mat[c] @ schur_operand(b_p[c])).reshape(6, W) for c in range(3))
         S_diag = torch.abs(torch.diagonal(S_mat))
         S_mat = S_mat + torch.diag(1e-3 * S_diag + fixed_diag + 1e-5)
         dx = solve_reduced(S_mat, rhs.reshape(-1)).reshape(6, W)

@@ -174,6 +174,11 @@ def covisibility_row(kp_point: torch.Tensor, kf_valid: torch.Tensor, kf_id, poin
     return shared.to(torch.int32)
 
 
+def point_positions_valid(state: SlamState):
+    """The map points' (P, 3) positions and (P,) validity."""
+    return state.points.pos, state.points.valid
+
+
 # ---- conversion to and from the JAX package's SlamState -------------------
 
 _INDEX_FIELDS = {"level", "kp_point", "ref_kf", "last_kf"}

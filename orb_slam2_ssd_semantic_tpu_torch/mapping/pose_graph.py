@@ -20,7 +20,11 @@ solve is zeroed, not raised. Every contraction runs in true f32
 (`precision.scoped`), as the JAX module's HIGHEST einsums.
 
 Edges are padded fixed-capacity arrays (`build_graph_arrays`, host
-numpy). The Sim(3) graph of monocular scale drift is not ported.
+numpy).
+
+`optimize_pose_graph_sim3` is the monocular form over Sim(3) vertices,
+which also absorbs scale drift: Jacobians by forward-mode autodiff of
+the edge residual, a dense (7F, 7F) solve a step.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ def _adjoint(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bot], dim=1)
 
 
-def _setup(T_cw, kf_valid, graph: PoseGraph, fixed):
+def _setup(T_cw, kf_valid, graph, fixed):
     F = T_cw.shape[0]
     if fixed is None:
         fixed = torch.arange(F, device=T_cw.device) == 0
@@ -246,6 +250,89 @@ def optimize_pose_graph_pcg(T_cw: torch.Tensor, kf_valid: torch.Tensor, graph: P
         ok = _edge_cost(T_new, graph, ei, ej, w) < _edge_cost(T, graph, ei, ej, w)
         T = torch.where(ok, T_new, T)
     return T
+
+
+@dataclasses.dataclass
+class Sim3Graph:
+    """Sim(3) pose-graph edges: the measured similarity j <- i is
+    (s_ji, T_ji[:3, :3], T_ji[:3, 3])."""
+
+    edge_i: torch.Tensor  # (E,) int64
+    edge_j: torch.Tensor  # (E,) int64
+    s_ji: torch.Tensor  # (E,) float32 measured relative scale
+    T_ji: torch.Tensor  # (E, 4, 4) measured rotation | translation
+    weight: torch.Tensor  # (E,) float32
+    valid: torch.Tensor  # (E,) bool
+
+
+@precision.scoped
+def optimize_pose_graph_sim3(T_cw: torch.Tensor, log_s: torch.Tensor, kf_valid: torch.Tensor,
+                             graph: Sim3Graph, fixed: torch.Tensor | None = None,
+                             iters: int = 20):
+    """7-DoF essential-graph optimization, the monocular form of
+    Optimizer::OptimizeEssentialGraph (perfect/src/Optimizer.cc:995-1308),
+    where loop closure must also absorb accumulated scale drift
+    (g2o::VertexSim3Expmap vertices). Minimizes
+    sum_e w_e || sim3_log(S_ji * S_i * S_j^-1) ||^2 over the vertices
+    S_i = (exp(log_s_i), R_i, t_i); `fixed` (F,) bool is the gauge
+    (default: keyframe 0).
+
+    Each step takes the edge Jacobians of left-multiplicative sim3
+    perturbations by `torch.func.jacfwd` (one perturbation shared by every
+    edge: each edge's residual depends on its own copy alone), scatters the
+    normal equations with `index_add_`, and solves the damped dense
+    (7F, 7F) system by LU (`solve_ex`, no host sync), as JAX does with
+    `jnp.linalg.solve`.
+
+    Returns (T_cw_opt (F, 4, 4), log_s_opt (F,)). Map points must be
+    corrected with the full similarity: p' = S'_ref^-1 (S_ref p)."""
+    D = 7
+    dev, f32 = T_cw.device, T_cw.dtype
+    F, free, ei, ej, w = _setup(T_cw, kf_valid, graph, fixed)
+    free_f = free.to(f32)
+    diag_fix = (~free).to(f32).repeat_interleave(D)
+    s_m, R_m, t_m = graph.s_ji, graph.T_ji[:, :3, :3], graph.T_ji[:, :3, 3]
+    zero = torch.zeros((2 * D,), dtype=f32, device=dev)
+    # Flat (i, j) block index of each term of the normal matrix.
+    k_ii, k_jj, k_ij, k_ji = ei * F + ei, ej * F + ej, ei * F + ej, ej * F + ei
+
+    def residual(xi, si, Ri, ti, sj, Rj, tj):
+        # A leading dim of 1 keeps the perturbation's scalars 1-d under
+        # forward AD (sim3_opt.py).
+        dsi, dRi, dti = se3.sim3_exp(xi[None, :D])
+        dsj, dRj, dtj = se3.sim3_exp(xi[None, D:])
+        si_, Ri_, ti_ = se3.sim3_compose(dsi, dRi, dti, si, Ri, ti)
+        sj_, Rj_, tj_ = se3.sim3_compose(dsj, dRj, dtj, sj, Rj, tj)
+        s1, R1, t1 = se3.sim3_compose(si_, Ri_, ti_, *se3.sim3_inverse(sj_, Rj_, tj_))
+        r = se3.sim3_log(*se3.sim3_compose(s_m, R_m, t_m, s1, R1, t1))
+        return r, r
+
+    T, ls = T_cw, log_s
+    for _ in range(iters):
+        s_all, R_all, t_all = torch.exp(ls), T[:, :3, :3], T[:, :3, 3]
+        J, r = torch.func.jacfwd(residual, has_aux=True)(
+            zero, s_all[ei], R_all[ei], t_all[ei], s_all[ej], R_all[ej], t_all[ej])
+        J_i, J_j = J[..., :D], J[..., D:]  # (E, 7, 7) each
+        Wr = w[:, None] * r
+        g = torch.zeros((F, D), dtype=f32, device=dev)
+        g.index_add_(0, ei, torch.einsum("eab,ea->eb", J_i, Wr))
+        g.index_add_(0, ej, torch.einsum("eab,ea->eb", J_j, Wr))
+        Hij = torch.einsum("eab,e,eac->ebc", J_i, w, J_j)
+        H = torch.zeros((F * F, D, D), dtype=f32, device=dev)
+        H.index_add_(0, k_ii, torch.einsum("eab,e,eac->ebc", J_i, w, J_i))
+        H.index_add_(0, k_jj, torch.einsum("eab,e,eac->ebc", J_j, w, J_j))
+        H.index_add_(0, k_ij, Hij)
+        H.index_add_(0, k_ji, Hij.transpose(-1, -2))
+        H = H.reshape(F, F, D, D) * free_f[:, None, None, None] * free_f[None, :, None, None]
+        g = g * free_f[:, None]
+        Hm = H.permute(0, 2, 1, 3).reshape(D * F, D * F) + torch.diag(diag_fix + 1e-5)
+        dx = torch.linalg.solve_ex(Hm, -g.reshape(-1))[0].reshape(F, D) * free_f[:, None]
+        ds, dR, dt = se3.sim3_exp(dx)
+        T = T.clone()
+        T[:, :3, :3] = dR @ R_all
+        T[:, :3, 3] = ds[:, None] * torch.einsum("fij,fj->fi", dR, t_all) + dt
+        ls = ls + dx[:, 6]
+    return T, ls
 
 
 def _numpy(a) -> np.ndarray:

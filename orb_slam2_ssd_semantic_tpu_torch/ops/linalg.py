@@ -1,10 +1,13 @@
 """Small fixed-size linear algebra (counterpart of the JAX package's
-`ops/linalg.py`, the functions the tracking slice uses): an unrolled
-Cholesky solve for the 6x6 pose systems and closed-form 3x3 inverses."""
+`ops/linalg.py`): an unrolled Cholesky solve for the 6x6 pose systems,
+closed-form 3x3 inverses, and a Jacobi-preconditioned CG for one
+mid-size SPD system."""
 
 from __future__ import annotations
 
 import torch
+
+from orb_slam2_ssd_semantic_tpu_torch.utils import precision
 
 
 def cholesky_solve_small(H: torch.Tensor, b: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -35,6 +38,34 @@ def cholesky_solve_small(H: torch.Tensor, b: torch.Tensor, eps: float = 1e-12) -
             s = s - L[k][i] * x[k]
         x[i] = s / L[i][i]
     return torch.stack(x, dim=-1)
+
+
+@precision.scoped
+def pcg_solve(A: torch.Tensor, b: torch.Tensor, iters: int = 32) -> torch.Tensor:
+    """Jacobi-preconditioned conjugate gradients for one SPD system
+    A (n, n), b (n,), a fixed `iters` steps with no host sync. The matvecs
+    run in true f32 (no TF32): on the cancellation-heavy normal systems a
+    reduced-precision product exceeds their weak eigenvalues. Where the
+    curvature p'Ap is not positive the step is 0 (x stays, the recurrences
+    stay finite)."""
+    dinv = 1.0 / torch.clamp(torch.abs(torch.diagonal(A)), min=1e-12)
+    x = torch.zeros_like(b)
+    r = b
+    p = dinv * r
+    rz = r @ p
+    zero = torch.zeros_like(rz)
+    for _ in range(iters):
+        Ap = A @ p
+        curv = p @ Ap
+        ok = curv > 1e-12 * torch.clamp(p @ p, min=1e-20)
+        alpha = torch.where(ok, rz / torch.clamp(curv, min=1e-20), zero)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = dinv * r
+        rz_new = r @ z
+        p = z + (rz_new / torch.clamp(rz, min=1e-20)) * p
+        rz = rz_new
+    return x
 
 
 def _adjugate(a, b, c, d, e, f, g, h, i, eps):

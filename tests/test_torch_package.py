@@ -1,7 +1,9 @@
 """Package rules of the PyTorch port: it loads neither JAX, Triton nor the
-JAX package; its entry points (the Tracker, the whole-sequence scan and
-segmented runner, `SlamSystem`, the detector, the occupancy maps and the
-batched consumer) run on the card unless asked for the CPU; `SlamSystem`
+JAX package, and its import loads no matplotlib (only the viewers need
+it); its entry points (the Tracker, the whole-sequence scan and
+segmented runner, `SlamSystem`, the detector, the occupancy maps, the
+batched consumer, registration and undistortion, the live app and the web
+viewer) run on the card unless asked for the CPU; `SlamSystem`
 refuses a device mesh and runs each other part on the CPU when asked (the
 dense map, the stereo and monocular front ends, map and occupancy
 persistence); the dynamic masks (the Tracker's `dynamic.enable_*`, the
@@ -30,8 +32,12 @@ def test_import_leaves_jax_triton_and_reference_unloaded():
     code = (
         "import sys, pkgutil, importlib\n"
         "import orb_slam2_ssd_semantic_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "assert 'matplotlib' not in sys.modules, 'the package import loaded matplotlib'\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "new = {'ops.register', 'apps.live_rgbd', 'apps.web_viewer', 'viz'}\n"
+        "assert new <= {n[len(p.__name__) + 1:] for n in names}, names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'triton', 'orb_slam2_ssd_semantic_tpu')]\n"
         "print(bad)\n"
@@ -83,6 +89,34 @@ def test_slam_system_and_detector_default_to_the_card():
                  lambda: make_batched_consume(SlamConfig(loop=NO_LOOP), [0], [0])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+def test_live_app_register_and_viewer_default_to_the_card(tmp_path):
+    """Registration and undistortion of numpy images, the live app's `run`
+    and `main` and the web viewer's `main` raise without a card unless
+    given the CPU."""
+    from orb_slam2_ssd_semantic_tpu_torch.apps import live_rgbd, web_viewer
+    from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig
+    from orb_slam2_ssd_semantic_tpu_torch.ops.register import (
+        register_depth_to_color,
+        undistort_image,
+    )
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    cam = CameraConfig(width=8, height=6, fx=5.0, fy=5.0, cx=4.0, cy=3.0)
+    depth = np.full((6, 8), 2.0, np.float32)
+    for call in (lambda: register_depth_to_color(depth, np.eye(4), cam, cam, 6, 8),
+                 lambda: undistort_image(depth, cam),
+                 lambda: live_rgbd.run(iter([]), SlamConfig(loop=NO_LOOP), out=str(tmp_path)),
+                 lambda: live_rgbd.main(["--source", "synthetic", "--frames", "1",
+                                         "--out", str(tmp_path)]),
+                 lambda: web_viewer.main(["--frames", "1", "--port", "0"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert torch.equal(register_depth_to_color(depth, np.eye(4), cam, cam, 6, 8, device="cpu"),
+                       torch.from_numpy(depth))
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("call", ["mesh"])
