@@ -6,10 +6,11 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught). They run in the
-order 1-3, 9 (without 9c), 10, 11, 12a-c, 9c, 4-8, 12c-d, 13: the views
-of phases 4-8 and 9c render on the CPU in a pool of worker processes at
-a lower priority while phases 9-12, which render on the card or need no
-view, run; phase 13 needs phase 4's views and 12c's files.
+order 1-3, 9 (without 9c), 10, 11, 12a-c, 9c, 4-8, 12c-d, 13, 14: the
+views of phases 4-8 and 9c render on the CPU in a pool of worker
+processes at a lower priority while phases 9-12, which render on the card
+or need no view, run; phase 13 needs phase 4's views and 12c's files,
+phase 14 phase 10's views and phase 7's map.
   1. print the card (nvidia-smi) and torch; build the CUDA kernels from
      `orb_slam2_ssd_semantic_tpu_torch/csrc/` with nvcc (one process per
      source, all at once) into `build/torch_kernels/`; time an empty
@@ -232,7 +233,34 @@ view, run; phase 13 needs phase 4's views and 12c's files.
         `tests/test_loop_reloc.py`'s scale-drift graph (10 keyframes, 11
         edges, 30 iterations): log-scales and poses within 1e-3 of ground
         truth, and within 1e-5 of a CPU run;
- 14. one JSON line of per-kernel numbers, the card's name and power limit,
+ 14. the multi-device code (counts zeroed before 14a's mesh run, read
+     after; B1's and B2's launches there are `launches_mesh`). The card
+     machine has one card and NCCL takes one rank a card, so 14a-14d run
+     on a 1-rank NCCL group that the script makes (a `file://` store in a
+     temporary directory, destroyed afterwards):
+     a. `SlamSystem(mesh=...)` with the bounded dense grid and loop
+        closing on the named vocabulary, on phase 10's first 24 frames,
+        against the same system without a mesh
+        (`tests/test_mesh_engine.py`'s gates: every frame OK, positions
+        within 5e-3 m, log-odds differing on at most 0.5% of the touched
+        voxels, colors agreeing on 99%); ms a frame of each;
+     b. `global_ba_step_state_sharded` on 7a's corrected map against
+        `global_ba_step_state` (1e-3 m), each timed by the host clock;
+     c. the sharded L1 query, BoW build and `make_sharded_detect` on 14a's
+        keyframes against the single-device scorer, `bow_vector` and
+        `detect_candidates` (1e-5, ids and `ok` equal);
+     d. the keyframe-sharded `flush_detections` on 4 of phase 10's views
+        (score gates 0) against the single-device flush (the same count,
+        centroids within 0.05 m);
+     e. two spawned ranks on the one card over gloo (`make_mesh(1, 2,
+        device="cuda")`): the sharded global BA at 2 iterations on 7a's
+        map, its keyframe slots interleaved so that both ranks own
+        observations, against 14b's one-rank run at 2 iterations
+        (1e-3 m), and three scans into a 64x32x32 grid at
+        0.1 m in two X slabs against `insert_scan` (1e-5); the copies a
+        profiled all-reduce of a CUDA tensor makes say whether gloo
+        stages it through the host; every result on the card;
+ 15. one JSON line of per-kernel numbers, the card's name and power limit,
      and the result line last.
 
 Without a CUDA card it exits non-zero and prints no result.
@@ -253,10 +281,12 @@ import dataclasses
 import json
 import multiprocessing
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -264,6 +294,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from orb_slam2_ssd_semantic_tpu_torch.apps import (
     cloud_to_occupancy,
@@ -312,7 +343,12 @@ from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import (
     orbit_trajectory,
 )
 from orb_slam2_ssd_semantic_tpu_torch.mapping import map_state
-from orb_slam2_ssd_semantic_tpu_torch.mapping.global_ba import global_ba_step_state
+from orb_slam2_ssd_semantic_tpu_torch.mapping import place_recognition
+from orb_slam2_ssd_semantic_tpu_torch.mapping.global_ba import (
+    global_ba_step_state,
+    global_ba_step_state_sharded,
+    problem_from_state,
+)
 from orb_slam2_ssd_semantic_tpu_torch.mapping.local_mapping import (
     fuse_map_points,
     local_mapping_step,
@@ -332,6 +368,15 @@ from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build, cuda_match, cuda_so
 from orb_slam2_ssd_semantic_tpu_torch.ops.homography import sample_minimal_sets
 from orb_slam2_ssd_semantic_tpu_torch.ops.match import window_mask
 from orb_slam2_ssd_semantic_tpu_torch.ops.register import register_depth_to_color, undistort_image
+from orb_slam2_ssd_semantic_tpu_torch.parallel import dist_bow, dist_occupancy
+from orb_slam2_ssd_semantic_tpu_torch.parallel.mesh import (
+    KF_AXIS,
+    PT_AXIS,
+    gather_rows,
+    make_mesh,
+    mesh_device,
+    shard_rows,
+)
 from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker
 from orb_slam2_ssd_semantic_tpu_torch.tracking import tracker as tracker_mod
 from orb_slam2_ssd_semantic_tpu_torch.tracking.reloc import relocalize
@@ -599,6 +644,32 @@ UND_K1, UND_TOL = -0.2, 1e-3
 LIVE_FRAMES, LIVE_SYNTHETIC_FRAMES, LIVE_WATCH_FRAMES, LIVE_IDLE_S = 24, 2, 8, 1.5
 LIVE_PROFILE_FRAMES = range(12, 14)
 SIM3_F, SIM3_ITERS, SIM3_GT_TOL, SIM3_CPU_TOL = 10, 30, 1e-3, 1e-5
+# Phase 14 (the multi-device code; `tests/test_mesh_engine.py`'s gates).
+# 14a: `SlamSystem(mesh=...)` on a 1-rank NCCL group, the dense grid
+# bounded (`dense.unbounded` off), loop closing on the named vocabulary,
+# on phase 10's first MESH_FRAMES frames, against the same system without
+# a mesh: every frame OK, positions within MESH_POS_TOL, log-odds
+# differing on at most MESH_VOXEL_SHARE of the touched voxels, colors
+# agreeing on MESH_COLOR_SHARE. 14b: `global_ba_step_state_sharded` on
+# phase 7's closure map against `global_ba_step_state`, MESH_GBA_TOL m.
+# 14c: the sharded L1 scores and `make_sharded_detect` against the
+# single-device scorer and `detect_candidates`, MESH_SCORE_TOL, ids equal.
+# 14d: the keyframe-sharded `flush_detections` on phase 10's
+# MESH_DETECT_VIEWS (score gates 0) against the single-device flush: the
+# same count, centroids within MESH_CENTROID_TOL. 14e: two spawned ranks
+# on the one card over gloo (NCCL takes one rank a card): the sharded GBA
+# at MESH_TWO_RANK_GBA_ITERS iterations against 14b's one-rank run at as
+# many, and MESH_SCANS scans of MESH_SCAN_POINTS rays into a
+# MESH_GRID_DIMS grid at 0.1 m in two X slabs against `insert_scan`
+# (`tests/test_parallel.py`'s 1e-5). Cut to fit the script's time: gloo
+# stages every CUDA all-reduce through the host, and the full 10
+# iterations took 16.9 s at two ranks (the whole script 1044 s).
+MESH_FRAMES, MESH_POS_TOL, MESH_VOXEL_SHARE, MESH_COLOR_SHARE = 24, 5e-3, 0.005, 0.99
+MESH_GBA_TOL, MESH_SCORE_TOL, MESH_CENTROID_TOL = 1e-3, 1e-5, 0.05
+MESH_DETECT_VIEWS = (0, 12, 24, 36)
+MESH_RANKS, MESH_SCANS, MESH_SCAN_POINTS, MESH_GRID_DIMS = 2, 3, 256, (64, 32, 32)
+MESH_OCC_TOL = 1e-5
+MESH_TWO_RANK_GBA_ITERS = 2
 
 
 def _log(msg: str) -> None:
@@ -1739,9 +1810,9 @@ def run_loop_path(dev, views: dict, card: str, small: bool = False) -> dict:
         closure = check_closure(dev, views, vocab, card, small)
         gba = check_global_ba_and_pose_graph(dev, closure, card)
         track = check_tracker_loop(dev, views, vocab, card, small)
-    closure.pop("cfg")
-    closure.pop("run")
+    closure_map = dict(cfg=closure.pop("cfg"), state=closure.pop("run")["snap"]["after"])
     res = dict(closure=closure, global_ba=gba, tracker=track, phase_s=time.perf_counter() - t0,
+               closure_map=closure_map,
                b1_launches=closure["b1_launches_in_on_keyframe"]
                + track["on"]["launches"]["window_match"])
     _log(f"phase 7 took {res['phase_s']:.1f} s; B1 launched {res['b1_launches']} times in it; "
@@ -3742,6 +3813,355 @@ def run_live_path(dev, card: str, rendered, scene: dict) -> dict:
                 phase_s=phase_s, times=times)
 
 
+# ---- phase 14: the multi-device code -----------------------------------------
+
+def mesh_config(vocabulary_path, cam: CameraConfig | None = None) -> SlamConfig:
+    """14a's config: the default one at `cam` with a keyframe at least
+    every DENSE_KF_GAP frames (11b's cadence), the dense grid bounded (the
+    grid a mesh splits into slabs), loop closing on the named
+    vocabulary."""
+    base = SlamConfig(camera=cam or CameraConfig())
+    return base.replace(tracking=dataclasses.replace(base.tracking,
+                                                     max_frames_between_kfs=DENSE_KF_GAP),
+                        dense=dataclasses.replace(base.dense, unbounded=False),
+                        loop=dataclasses.replace(base.loop, enabled=True,
+                                                 vocabulary_path=vocabulary_path))
+
+
+def _grid_of(sys_) -> tuple:
+    """(log_odds, color) of a system's dense grid, a sharded grid's slabs
+    gathered, on the host."""
+    sg = sys_._sharded_grid
+    if sg is None:
+        return sys_.grid.log_odds.cpu().numpy(), sys_.grid.color.cpu().numpy()
+    return tuple(gather_rows(sg[k], sys_.mesh, PT_AXIS).cpu().numpy() for k in ("log_odds", "color"))
+
+
+def check_mesh_system(dev, mesh, scene: dict, vocab: str, card: str) -> dict:
+    """14a: the same frames through `SlamSystem` without and with the mesh;
+    B1's launches are counted over the mesh run alone."""
+    cfg = mesh_config(vocab, CameraConfig(width=scene["gray_host"].shape[2],
+                                          height=scene["gray_host"].shape[1]))
+    n = min(MESH_FRAMES, scene["gray_host"].shape[0])
+    frames = [(scene["gray_host"][i], scene["depth_host"][i]) for i in range(n)]
+    out, ms, counts = {}, {}, None
+    for tag, m in (("single", None), ("mesh", mesh)):
+        sys_ = SlamSystem(cfg, enable_dense_map=True, mesh=m, device=None if m else dev)
+        if tag == "mesh":
+            _reset_counts()
+        ms[tag] = [_timed(lambda: sys_.track_rgbd(g, d, i / 30.0), dev)[1]
+                   for i, (g, d) in enumerate(frames)]
+        if tag == "mesh":
+            counts = _counts()
+        out[tag] = sys_
+    s, m = out["single"], out["mesh"]
+    lo_s, col_s = _grid_of(s)
+    lo_m, col_m = _grid_of(m)
+    touched = (lo_s != 0) | (lo_m != 0)
+    hit = (col_s != 0).any(-1) | (col_m != 0).any(-1)
+    res = dict(frames=n, statuses_ok=sum(st["status"] == "OK" for st in m.tracker.stats),
+               keyframes=m.tracker._n_kfs, sharded_scores=m.tracker.loop_closer._sharded_scores
+               is not None, slab_x=int(m._sharded_grid["log_odds"].shape[0]),
+               position_gap_m=float(np.abs(m.tracker.camera_positions()
+                                           - s.tracker.camera_positions()).max()),
+               ate_m=evaluate_ate_xyz(m.tracker.camera_positions(), scene["poses"][:n, :3, 3]).rmse,
+               touched_voxels=int(touched.sum()),
+               voxels_differing=int((np.abs(lo_m - lo_s) > 1e-5).sum()),
+               voxels_unequal=int((lo_m != lo_s).sum()),
+               color_agree_share=float(np.isclose(col_m, col_s, atol=1e-3).all(-1)[hit].mean()),
+               median_frame_ms=statistics.median(ms["mesh"][1:]),
+               median_frame_ms_single=statistics.median(ms["single"][1:]), launches=counts)
+    _log("14a SlamSystem(mesh=...) on a 1-rank NCCL group against no mesh: " + json.dumps(res)
+         + f"; card: {card}")
+    if res["statuses_ok"] != n or s.status != "OK":
+        raise AssertionError(f"14a: {n - res['statuses_ok']} frames of the mesh run not OK")
+    if not (res["sharded_scores"] and res["slab_x"] == s.grid.shape[0]):
+        raise AssertionError("14a: the mesh run did not take the sharded scorer and grid")
+    if not res["position_gap_m"] <= MESH_POS_TOL:
+        raise AssertionError(f"14a: trajectories {res['position_gap_m']} m apart")
+    if not (res["touched_voxels"] > 10_000 and res["voxels_differing"]
+            <= MESH_VOXEL_SHARE * res["touched_voxels"]):
+        raise AssertionError(f"14a: {res['voxels_differing']} of {res['touched_voxels']} touched "
+                             "voxels differ")
+    if not res["color_agree_share"] > MESH_COLOR_SHARE:
+        raise AssertionError(f"14a: colors agree on {res['color_agree_share']:.4f}")
+    if dev.type == "cuda" and counts["window_match"] == 0:
+        raise AssertionError("14a: the mesh run never launched the window matcher")
+    return res | {"systems": out}
+
+
+def _few_gba_iterations(cfg: SlamConfig) -> SlamConfig:
+    return cfg.replace(optimizer=dataclasses.replace(cfg.optimizer,
+                                                     global_ba_iters=MESH_TWO_RANK_GBA_ITERS))
+
+
+def check_mesh_global_ba(dev, mesh, cfg: SlamConfig, state, card: str) -> dict:
+    """14b: the sharded global BA on phase 7's closure map against the
+    single-device step, each timed by the host clock; and the sharded step
+    at 14e's iterations, for 14e."""
+    single, single_ms = _timed(lambda: global_ba_step_state(state, cfg), dev)
+    sharded, sharded_ms = _timed(lambda: global_ba_step_state_sharded(state, cfg, mesh), dev)
+    few, few_ms = _timed(lambda: global_ba_step_state_sharded(state, _few_gba_iterations(cfg),
+                                                              mesh), dev)
+    pose_err, point_err = _gba_diff(sharded, single, state)
+    moved = float((single.kfs.T_cw[state.kfs.valid] - state.kfs.T_cw[state.kfs.valid]).abs().max())
+    res = dict(observation_slots=int(state.kfs.kp_point.numel()), global_ba_ms=single_ms,
+               sharded_global_ba_ms=sharded_ms, pose_max_abs_err=pose_err,
+               point_max_abs_err=point_err, pose_max_move=moved,
+               sharded_ms_at_two_rank_iters=few_ms)
+    _log("14b sharded global BA (1 rank) against global_ba_step_state on 7a's map: "
+         + json.dumps(res) + f"; card: {card}")
+    if not (pose_err <= MESH_GBA_TOL and point_err <= MESH_GBA_TOL):
+        raise AssertionError(f"14b: sharded global BA {pose_err:.3e} (poses) / {point_err:.3e} "
+                             f"(points) from the single-device step")
+    return res | {"sharded_few": few}
+
+
+def check_mesh_bow(dev, mesh, systems: dict, card: str) -> dict:
+    """14c: on 14a's keyframes, the sharded L1 query against the
+    single-device scorer, and the sharded BoW build and detect against
+    `place_recognition.bow_vector` and `detect_candidates`."""
+    sm, ss = systems["mesh"], systems["single"]
+    lc = sm.tracker.loop_closer
+    kfs = sm.tracker.state.kfs
+    live = torch.nonzero(kfs.valid).reshape(-1)
+    kf = int(sm.tracker.state.last_kf)
+    words = voc.quantize(lc.vocab, kfs.desc[kf], kfs.kp_valid[kf])
+    vals = voc.bow_columns(words, lc.vocab.idf)
+    sharded = dist_bow.make_sharded_l1_scores(mesh, lc.vocab.n_words)
+    whole = lc.database_to_numpy()
+    s_sh = sharded(words, vals, shard_rows(lc.word_db, mesh, KF_AXIS),
+                   shard_rows(lc.val_db, mesh, KF_AXIS))
+    s_one = voc.l1_scores(words, vals, torch.from_numpy(whole["word_db"].astype(np.int64)).to(dev),
+                          torch.from_numpy(whole["val_db"]).to(dev), lc.vocab.n_words)
+    s_sys = ss.tracker.loop_closer.frame_scores(kfs.desc[kf], kfs.kp_valid[kf])
+    build = dist_bow.make_sharded_bow_vectors(mesh, place_recognition.bow_vector)
+    db = gather_rows(build(shard_rows(kfs.desc[live], mesh, KF_AXIS),
+                           shard_rows(kfs.kp_valid[live], mesh, KF_AXIS)), mesh, KF_AXIS)
+    db_ref = torch.stack([place_recognition.bow_vector(kfs.desc[i], kfs.kp_valid[i]) for i in live])
+    query = db_ref[-1] * 0.9 + db_ref[0] * 0.1
+    query = query / torch.linalg.norm(query)
+    db_valid = torch.ones(len(live), dtype=torch.bool, device=dev)
+    exclude = torch.zeros_like(db_valid)
+    exclude[-1] = True
+    n_cand = min(4, len(live))
+    detect = dist_bow.make_sharded_detect(mesh, max_candidates=n_cand)
+    ids, sc, ok = detect(query, shard_rows(db, mesh, KF_AXIS), shard_rows(db_valid, mesh, KF_AXIS),
+                         shard_rows(exclude, mesh, KF_AXIS), 0.05)
+    ids_r, sc_r, ok_r = place_recognition.detect_candidates(query, db_ref, db_valid, exclude, 0.05,
+                                                            max_candidates=n_cand)
+    res = dict(keyframes=len(live), l1_max_abs_err=float((s_sh - s_one).abs().max()),
+               l1_vs_single_system_max_abs_err=float(np.abs(s_sh.cpu().numpy() - s_sys).max()),
+               bow_max_abs_err=float((db - db_ref).abs().max()),
+               detect_score_max_abs_err=float((sc - sc_r).abs().max()),
+               ids_equal=bool(torch.equal(ids, ids_r)), ok_equal=bool(torch.equal(ok, ok_r)),
+               candidates=ids.tolist(), l1_ms=_sync_ms(lambda: sharded(
+                   words, vals, lc.word_db, lc.val_db), dev, 10),
+               l1_single_ms=_sync_ms(lambda: voc.l1_scores(words, vals, lc.word_db, lc.val_db,
+                                                           lc.vocab.n_words), dev, 10))
+    _log("14c sharded BoW scoring against the single-device scorer: " + json.dumps(res)
+         + f"; card: {card}")
+    errs = (res["l1_max_abs_err"], res["l1_vs_single_system_max_abs_err"], res["bow_max_abs_err"],
+            res["detect_score_max_abs_err"])
+    if not (max(errs) <= MESH_SCORE_TOL and res["ids_equal"] and res["ok_equal"]):
+        raise AssertionError(f"14c: sharded scoring differs: {json.dumps(res)}")
+    return res
+
+
+def check_mesh_detection(dev, mesh, scene: dict, params: dict, card: str) -> dict:
+    """14d: phase 10's MESH_DETECT_VIEWS as keyframe payloads through the
+    keyframe-sharded flush and the single-device one, score gates at 0.
+    Both queue the views as a kf axis of that many ranks would batch them
+    (`_det_batch`), so both flushes take the bf16 batched forward (the
+    single device's too, as in JAX): with the seeded weights and the
+    gates at 0, the f32 and the bf16 paths can create other objects (the
+    two paths' gap is phase 10's)."""
+    cam = CameraConfig(width=scene["gray_host"].shape[2], height=scene["gray_host"].shape[1])
+    base = SlamConfig(camera=cam)
+    cfg0 = base.replace(semantic=dataclasses.replace(base.semantic, det_score_threshold=0.0,
+                                                     fusion_prob_threshold=0.0))
+    dbs = {}
+    for tag, m in (("single", None), ("mesh", mesh)):
+        sys_ = SlamSystem(cfg0, enable_semantics=True, detector_params=params, mesh=m,
+                          device=None if m else dev)
+        sys_._det_batch = len(MESH_DETECT_VIEWS)
+
+        for i in MESH_DETECT_VIEWS:
+            sys_._on_new_keyframe(_rgb(scene["grays"][i]), scene["depths"][i],
+                                  np.linalg.inv(scene["poses"][i]).astype(np.float32))
+        sys_.flush_detections()
+        dbs[tag] = (sys_.object_db.valid.cpu().numpy(), sys_.object_db.centroid.cpu().numpy(),
+                    sys_._det_batch)
+    (v_s, c_s, _), (v_m, c_m, batch) = dbs["single"], dbs["mesh"]
+    res = dict(keyframes=len(MESH_DETECT_VIEWS), det_batch=batch, objects=int(v_m.sum()),
+               objects_single=int(v_s.sum()))
+    if res["objects"] == res["objects_single"]:
+        res["centroid_gap_m"] = float(np.abs(np.sort(c_m[v_m], 0) - np.sort(c_s[v_s], 0)).max()) \
+            if v_m.any() else 0.0
+    _log("14d keyframe-sharded detection against the single-device flush: " + json.dumps(res)
+         + f"; card: {card}")
+    if not (res["objects"] == res["objects_single"] > 0
+            and res["centroid_gap_m"] <= MESH_CENTROID_TOL):
+        raise AssertionError(f"14d: {json.dumps(res)}")
+    return res
+
+
+def mesh_scans(seed: int = 0) -> list:
+    """14e's scans (`tests/test_parallel.py`'s): MESH_SCANS origins along X
+    and MESH_SCAN_POINTS endpoints each in the 6.4 x 3.2 x 3.2 m box, 10%
+    invalid, 20% carve-only."""
+    rng = np.random.default_rng(seed)
+    scans = []
+    for scan in range(MESH_SCANS):
+        o = np.asarray([0.4 + 2.2 * scan, 1.6, 1.6], np.float32)
+        n = MESH_SCAN_POINTS
+        pts = np.stack([rng.uniform(0.2, 6.2, n), rng.uniform(0.2, 3.0, n),
+                        rng.uniform(0.2, 3.0, n)], -1).astype(np.float32)
+        scans.append((o, pts, rng.uniform(size=n) > 0.1, rng.uniform(size=n) > 0.8))
+    return scans
+
+
+def _mesh_rank(rank: int, world: int, work: str, cfg: SlamConfig, device: str) -> None:
+    """One of 14e's ranks: a gloo group on `device`'s tensors (the card's),
+    the sharded GBA on phase 7's map and the scans into a sharded grid;
+    rank 0 saves the results, and the copies an all-reduce makes."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(1, world, device=device)
+        dev = mesh_device(mesh)
+        with open(f"{work}/state.pkl", "rb") as f:
+            state = map_state.state_from_numpy(pickle.load(f), dev)
+        gba, gba_ms = _timed(lambda: global_ba_step_state_sharded(state, cfg, mesh), dev)
+        dcfg = DenseMapConfig(resolution=0.1, max_ray_steps=64)
+        lo, _ = dist_occupancy.make_sharded_grid(mesh, MESH_GRID_DIMS, 0.1, (0.0, 0.0, 0.0))
+        insert = dist_occupancy.make_sharded_insert(mesh, dcfg, MESH_GRID_DIMS, (0.0, 0.0, 0.0))
+        for o, pts, valid, carve in mesh_scans():
+            lo = insert(lo, *(torch.from_numpy(a).to(dev) for a in (o, pts, valid, carve)))
+        grid = gather_rows(lo, mesh, PT_AXIS)
+        x = torch.ones(1 << 20, device=dev)
+        copies = {}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                dist.all_reduce(x, group=mesh.get_group(PT_AXIS))
+                torch.cuda.synchronize()
+            copies = {e.key: e.count for e in prof.key_averages() if "Memcpy" in e.key}
+        devices = {str(t.device) for t in (gba.kfs.T_cw, gba.points.pos, grid, x)}
+        if rank == 0:
+            with open(f"{work}/rank0.pkl", "wb") as f:
+                pickle.dump(dict(T_cw=gba.kfs.T_cw.cpu().numpy(), pos=gba.points.pos.cpu().numpy(),
+                                 grid=grid.cpu().numpy(), gba_ms=gba_ms, devices=sorted(devices),
+                                 copies=copies, slab_x=int(lo.shape[0])), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _interleave_keyframes(state):
+    """`state` with its keyframe slots reordered, even slots into the first
+    half and odd ones into the second, and the slot references remapped:
+    the global BA problem of a map whose keyframes fill the first slots
+    (7a's) then has observations in both halves of its rows, so both of
+    14e's ranks own some. Returns (state, inverse: old slot -> new)."""
+    kfs = state.kfs
+    F = kfs.valid.shape[0]
+    dev = kfs.valid.device
+    order = torch.cat([torch.arange(0, F, 2), torch.arange(1, F, 2)]).to(dev)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(F, device=dev)
+    ref = state.points.ref_kf
+    return state.replace(
+        kfs=kfs.replace(**{f.name: getattr(kfs, f.name)[order] for f in dataclasses.fields(kfs)}),
+        points=state.points.replace(ref_kf=torch.where(ref >= 0, inv[ref.clamp(min=0)], ref)),
+        last_kf=inv[state.last_kf]), inv
+
+
+def check_two_ranks(dev, cfg: SlamConfig, state, gba_one, card: str) -> dict:
+    """14e: MESH_RANKS spawned ranks on the one card over gloo, against
+    14b's one-rank sharded result at MESH_TWO_RANK_GBA_ITERS iterations
+    and the single-device `insert_scan`. The ranks take 7a's map with its
+    keyframe slots interleaved, so that the sums cross the ranks; their
+    poses are mapped back to 7a's slots."""
+    cfg = _few_gba_iterations(cfg)
+    ref = empty_grid(extent=tuple(d * 0.1 for d in MESH_GRID_DIMS), resolution=0.1,
+                     origin=(0.0, 0.0, 0.0), device=dev)
+    dcfg = DenseMapConfig(resolution=0.1, max_ray_steps=64)
+    for o, pts, valid, carve in mesh_scans():
+        ref = insert_scan(ref, *(torch.from_numpy(a).to(dev) for a in (o, pts, valid)),
+                          carve_only=torch.from_numpy(carve).to(dev), cfg=dcfg)
+    spread, inv = _interleave_keyframes(state)
+    obs_valid = problem_from_state(spread, cfg).obs_valid
+    per_rank = [int(v.sum()) for v in obs_valid.chunk(MESH_RANKS)]
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "build") as work:
+        with open(f"{work}/state.pkl", "wb") as f:
+            pickle.dump(map_state.state_to_numpy(spread), f)
+        t = time.perf_counter()
+        torch.multiprocessing.start_processes(_mesh_rank, args=(MESH_RANKS, work, cfg, dev.type),
+                                              nprocs=MESH_RANKS, join=True, start_method="spawn")
+        spawn_s = time.perf_counter() - t
+        with open(f"{work}/rank0.pkl", "rb") as f:
+            r = pickle.load(f)
+    live, pts = state.kfs.valid.cpu().numpy(), state.points.valid.cpu().numpy()
+    T_two = r["T_cw"][inv.cpu().numpy()]
+    res = dict(ranks=MESH_RANKS, backend="gloo", slab_x=r["slab_x"], devices=r["devices"],
+               valid_observations_by_rank=per_rank, allreduce_copies=r["copies"],
+               gba_ms=r["gba_ms"], wall_s=spawn_s,
+               pose_max_abs_err=float(np.abs(T_two - gba_one.kfs.T_cw.cpu().numpy())[live].max()),
+               point_max_abs_err=float(np.abs(r["pos"] - gba_one.points.pos.cpu().numpy())[pts].max()),
+               occupancy_max_abs_err=float(np.abs(r["grid"] - ref.log_odds.cpu().numpy()).max()),
+               occupancy_touched=int((ref.log_odds.cpu().numpy() != 0).sum()))
+    copies = res["allreduce_copies"]
+    if not copies:
+        staging = "the profiler recorded no copy (staging not measured)"
+    elif any("DtoH" in k for k in copies) and any("HtoD" in k for k in copies):
+        staging = "gloo stages CUDA tensors through the host"
+    else:
+        staging = "gloo made no round trip through the host"
+    _log(f"14e: one all_reduce of a CUDA tensor over gloo, profiled: copies {json.dumps(copies)}: "
+         f"{staging}; every result stays on the card")
+    _log(f"14e {MESH_RANKS} ranks on one card over gloo: " + json.dumps(res) + f"; card: {card}")
+    if res["devices"] != [str(torch.device(dev.type, 0) if dev.type == "cuda" else dev)]:
+        raise AssertionError(f"14e: results on {res['devices']}, not on the card")
+    if res["slab_x"] * MESH_RANKS != MESH_GRID_DIMS[0] or min(per_rank) == 0:
+        raise AssertionError("14e: the grid or the observations are not split over the ranks")
+    if not (res["pose_max_abs_err"] <= MESH_GBA_TOL and res["point_max_abs_err"] <= MESH_GBA_TOL):
+        raise AssertionError(f"14e: two-rank global BA {res['pose_max_abs_err']:.3e} / "
+                             f"{res['point_max_abs_err']:.3e} from one rank's")
+    if not (res["occupancy_max_abs_err"] <= MESH_OCC_TOL and res["occupancy_touched"] > 0):
+        raise AssertionError(f"14e: two-slab grid {res['occupancy_max_abs_err']:.3e} from "
+                             "insert_scan")
+    return res
+
+
+def run_mesh_path(dev, card: str, scene: dict, params: dict, closure: dict) -> dict:
+    """Phase 14: 14a-14d on a 1-rank NCCL group the script makes (a
+    `file://` store in a temporary directory, destroyed afterwards), then
+    14e on two spawned gloo ranks."""
+    t14 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="trained artifact")
+        vocab = named_vocabulary(Path(__file__).resolve().parent / "build" / "reloc_vocab")
+        with tempfile.TemporaryDirectory() as store:
+            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                    init_method=f"file://{store}/store", rank=0, world_size=1)
+            try:
+                mesh = make_mesh(1, 1, device=dev.type)
+                system = check_mesh_system(dev, mesh, scene, vocab, card)
+                gba = check_mesh_global_ba(dev, mesh, closure["cfg"], closure["state"], card)
+                bow = check_mesh_bow(dev, mesh, system.pop("systems"), card)
+                det = check_mesh_detection(dev, mesh, scene, params, card)
+            finally:
+                dist.destroy_process_group()
+    two = check_two_ranks(dev, closure["cfg"], closure["state"], gba.pop("sharded_few"), card)
+    phase_s = time.perf_counter() - t14
+    _log(f"phase 14 took {phase_s:.1f} s; B1 launched {system['launches']['window_match']} times "
+         f"in 14a's mesh run; card: {card}")
+    return dict(system=system, global_ba=gba, bow=bow, detection=det, two_ranks=two,
+                launches=system["launches"], phase_s=phase_s)
+
+
 def host_times(dev) -> dict:
     """Host time of each wrapper's `prepare` and `launch`, and of the whole
     wrapper, for B1 at the main path's first shape and B2 at its size."""
@@ -3793,7 +4213,8 @@ def main() -> int:
         dyn = run_dynamic_path(dev, card, masked_tracking=False)
         sem = run_semantic_path(dev, card)
         scene = sem.pop("scene")
-        dense = run_dense_path(dev, card, scene, sem.pop("params"))
+        params = sem.pop("params")
+        dense = run_dense_path(dev, card, scene, params)
         apps = run_apps_path(dev, card, scene, dense["functions"].pop("cloud"))
     except BaseException:
         job["pool"].terminate()
@@ -3818,6 +4239,7 @@ def main() -> int:
     _log(f"phase 8 took {time.perf_counter() - t8:.1f} s; card: {card}")
     frame_apps = run_frame_apps_path(dev, card, rendered, main_res["poses"])
     live = run_live_path(dev, card, rendered, scene)
+    mesh = run_mesh_path(dev, card, scene, params, loop.pop("closure_map"))
     launches_apps = {k: apps["launches"][k] + frame_apps["launches"][k]
                      for k in apps["launches"]}
     kernels = [
@@ -3838,7 +4260,8 @@ def main() -> int:
              launches_semantic=sem["launches"]["window_match"],
              launches_dense=dense["launches"]["window_match"],
              launches_apps=launches_apps["window_match"],
-             launches_live=live["launches"]["window_match"], init_shape=b1["init_shape"],
+             launches_live=live["launches"]["window_match"],
+             launches_mesh=mesh["launches"]["window_match"], init_shape=b1["init_shape"],
              path="Tracker.process, default config"),
         dict(name="spd_solve", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/spd_solve.cu",
@@ -3856,6 +4279,7 @@ def main() -> int:
              launches_dense=dense["launches"]["spd_solve"],
              launches_apps=launches_apps["spd_solve"],
              launches_live=live["launches"]["spd_solve"],
+             launches_mesh=mesh["launches"]["spd_solve"],
              path="local_mapping_step, window 12 + 8"),
     ]
     _log(f"summary: build {build_s:.2f} s, main path median {main_res['median_frame_ms']:.2f} "
@@ -3891,7 +4315,13 @@ def main() -> int:
          f"{live['app']['run']['median_frame_ms']:.2f} ms a frame with undistortion and "
          f"registration, register_depth_to_color {live['registration']['ms']:.4f} ms, "
          f"undistort_image (RGB) {live['undistortion']['rgb']['ms']:.4f} ms, the Sim(3) graph "
-         f"{live['sim3']['ms']:.1f} ms; phase 13 {live['phase_s']:.1f} s; card: {card}")
+         f"{live['sim3']['ms']:.1f} ms; phase 13 {live['phase_s']:.1f} s; a frame of "
+         f"SlamSystem(mesh=...) at one rank {mesh['system']['median_frame_ms']:.2f} ms (without "
+         f"the mesh {mesh['system']['median_frame_ms_single']:.2f}), the sharded global BA "
+         f"{mesh['global_ba']['sharded_global_ba_ms']:.1f} ms (single "
+         f"{mesh['global_ba']['global_ba_ms']:.1f}), at {MESH_TWO_RANK_GBA_ITERS} iterations "
+         f"{mesh['global_ba']['sharded_ms_at_two_rank_iters']:.1f} ms at one rank and "
+         f"{mesh['two_ranks']['gba_ms']:.1f} ms at two ranks over gloo; phase 14 {mesh['phase_s']:.1f} s; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

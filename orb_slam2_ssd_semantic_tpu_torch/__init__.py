@@ -56,10 +56,13 @@ Ported so far:
   (`mapping/pose_graph.optimize_pose_graph_sim3` with `Sim3Graph`);
 - the viewers: `viz.py` (PNG plots, `draw_trajectory_main`) and the live
   web dashboard `apps/web_viewer.py`; they need matplotlib, which this
-  package's import does not load.
-Refused, not ported yet: the multi-device code alone (`parallel/` and
-every `mesh=`: `SlamSystem` and `LoopCloser` raise NotImplementedError for
-a `mesh`, and so does the sharded global BA).
+  package's import does not load;
+- the multi-device code (`parallel/` on `torch.distributed`, one process
+  per device over a (kf, pt) `DeviceMesh`): the observation-sharded
+  global BA (`global_ba_step_state_sharded`), the keyframe-sharded BoW
+  database, query and detection, and the X-slab occupancy grid, behind
+  `SlamSystem(mesh=...)`, `Tracker(mesh=...)` and `LoopCloser(mesh=...)`.
+Everything the JAX package does is ported.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,5 @@
 """Global (full-map) bundle adjustment via implicit Schur complement + CG
-(counterpart of the JAX package's `mapping/global_ba.py`, its
-single-device half).
+(counterpart of the JAX package's `mapping/global_ba.py`).
 
 Equivalent of Optimizer::GlobalBundleAdjustemnt (perfect/src/
 Optimizer.cc:72-363) and of the GBA thread spawned on loop closure
@@ -29,9 +28,13 @@ kernels (`utils/precision.py`), whose scatter-add walks the repeats of
 one index in order, and half a million empty slots on one row made each
 sum take ~0.1 s on an H100 (`chip_smoke.py` phase 7).
 
+The form distributes: with the observations split over the mesh's `pt`
+axis (`group`, the JAX module's `axis_name`), every sum over keyframes or
+points is a local `index_add_` followed by one all-reduce
+(`parallel/dist_ba.py`, `global_ba_step_state_sharded`).
+
 Gauge: fixed keyframes keep zeroed pose Jacobians and an identity block
-on their Hcc diagonal (g2o setFixed). The observation-sharded multi-device
-form is not ported.
+on their Hcc diagonal (g2o setFixed).
 """
 
 from __future__ import annotations
@@ -39,12 +42,15 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig, OptimizerConfig, SlamConfig
 from orb_slam2_ssd_semantic_tpu_torch.frontend.extractor import scale_factors
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import SlamState
 from orb_slam2_ssd_semantic_tpu_torch.ops.linalg import cholesky_solve_small, inv3x3
+from orb_slam2_ssd_semantic_tpu_torch.parallel import dist_ba
+from orb_slam2_ssd_semantic_tpu_torch.parallel.mesh import PT_AXIS, axis_size, gather_rows, shard_rows
 from orb_slam2_ssd_semantic_tpu_torch.utils import precision
 
 
@@ -80,9 +86,13 @@ def _spread(idx: torch.Tensor, used: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(used, idx, spare)
 
 
-def _row_sum(v: torch.Tensor, key: torch.Tensor, n: int) -> torch.Tensor:
-    """(M, ...) -> (n, ...): v summed onto rows `key` (from `_spread`)."""
-    return v.new_zeros((n + _SPREAD_ROWS,) + v.shape[1:]).index_add_(0, key, v)[:n]
+def _row_sum(v: torch.Tensor, key: torch.Tensor, n: int, group=None) -> torch.Tensor:
+    """(M, ...) -> (n, ...): v summed onto rows `key` (from `_spread`), and
+    over the ranks of `group` when one is given."""
+    out = v.new_zeros((n + _SPREAD_ROWS,) + v.shape[1:]).index_add_(0, key, v)[:n]
+    if group is not None:
+        dist.all_reduce(out, group=group)
+    return out
 
 
 @dataclasses.dataclass
@@ -124,9 +134,12 @@ def _residual_components(T_cw, points, prob: GlobalBAProblem, cam: CameraConfig)
 
 
 def _gn_direction(e, J_pose, J_point, wc, prob: GlobalBAProblem, cfg: OptimizerConfig,
-                  cg_iters: int, obs_per_kf: int | None = None):
+                  cg_iters: int, obs_per_kf: int | None = None, group=None):
     """One Gauss-Newton direction (dx_c (F, 6), dx_p (P, 3)) for the
-    weighted problem; `wc` (M, 3) are the robust per-component weights."""
+    weighted problem; `wc` (M, 3) are the robust per-component weights.
+    With `group`, the observation arrays are this rank's rows and each sum
+    is all-reduced over the group (the reshape path is off then: a rank's
+    rows are not slot-aligned)."""
     F = prob.T_cw.shape[0]
     P = prob.points.shape[0]
     kf, pt = prob.obs_kf, prob.obs_pt
@@ -134,12 +147,12 @@ def _gn_direction(e, J_pose, J_point, wc, prob: GlobalBAProblem, cfg: OptimizerC
     kf_key, pt_key = _spread(kf, prob.obs_valid, F), _spread(pt, prob.obs_valid, P)
 
     def kf_sum(v):  # (M, ...) -> (F, ...)
-        if obs_per_kf is not None:
+        if obs_per_kf is not None and group is None:
             return v.reshape(F, obs_per_kf, *v.shape[1:]).sum(1)
-        return _row_sum(v, kf_key, F)
+        return _row_sum(v, kf_key, F, group)
 
     def pt_sum(v):  # (M, ...) -> (P, ...)
-        return _row_sum(v, pt_key, P)
+        return _row_sum(v, pt_key, P, group)
 
     JtW = J_pose * wc[..., None]  # (M, 3, 6) pre-weighted pose rows
     B = torch.einsum("mri,mrj->mij", JtW, J_point)  # (M, 6, 3) coupling blocks
@@ -200,7 +213,7 @@ def _gn_direction(e, J_pose, J_point, wc, prob: GlobalBAProblem, cfg: OptimizerC
 
 
 def _gn_iteration(T_cw, points, prob: GlobalBAProblem, cam: CameraConfig, cfg: OptimizerConfig,
-                  comp_w, delta, cg_iters: int, obs_per_kf=None):
+                  comp_w, delta, cg_iters: int, obs_per_kf=None, group=None):
     """One robust (Huber) Gauss-Newton step; returns (T_cw, points)."""
     e, J_pose, J_point, behind = _residual_components(T_cw, points, prob, cam)
     w = prob.inv_sigma2 * prob.obs_valid * (~behind)
@@ -210,16 +223,19 @@ def _gn_iteration(T_cw, points, prob: GlobalBAProblem, cam: CameraConfig, cfg: O
     wc = (w * rho)[:, None] * comp_w  # (M, 3)
     # Fixed keyframes contribute to points but not to pose blocks.
     J_pose = J_pose * (~prob.fixed)[prob.obs_kf].to(J_pose.dtype)[:, None, None]
-    dx_c, dx_p = _gn_direction(e, J_pose, J_point, wc, prob, cfg, cg_iters, obs_per_kf)
+    dx_c, dx_p = _gn_direction(e, J_pose, J_point, wc, prob, cfg, cg_iters, obs_per_kf, group)
     return se3.se3_exp(dx_c) @ T_cw, points + dx_p
 
 
 def global_ba_core(prob: GlobalBAProblem, cam: CameraConfig, cfg: OptimizerConfig,
-                   cg_iters: int, obs_per_kf: int | None = None) -> GlobalBAResult:
+                   cg_iters: int, obs_per_kf: int | None = None, group=None) -> GlobalBAResult:
     """The full robust GN loop: `cfg.global_ba_iters` iterations as a host
     loop that never reads the device. `obs_per_kf`: set when obs_kf ==
     repeat(arange(F), K) (`problem_from_state` builds that layout), which
-    turns the keyframe sums into reshape reductions."""
+    turns the keyframe sums into reshape reductions. With `group` (a
+    process group: the JAX module's `axis_name`), the observation arrays
+    of `prob` are this rank's rows and every sum is all-reduced over it
+    (`parallel/dist_ba.py`); `inlier` and `chi2` are then this rank's rows."""
     F = prob.T_cw.shape[0]
     ones3 = prob.obs_uvr.new_ones(3)
     comp_w = torch.where(prob.is_stereo[:, None], ones3, prob.obs_uvr.new_tensor([1.0, 1.0, 0.0]))
@@ -231,12 +247,14 @@ def global_ba_core(prob: GlobalBAProblem, cam: CameraConfig, cfg: OptimizerConfi
     # 6-DoF pose: freeze it (it still constrains its points).
     n_obs_kf = torch.zeros((F,), dtype=torch.int64, device=prob.T_cw.device).index_add_(
         0, prob.obs_kf, prob.obs_valid.to(torch.int64))
+    if group is not None:
+        dist.all_reduce(n_obs_kf, group=group)
     prob = prob.replace(fixed=prob.fixed | (n_obs_kf < 6))
 
     T_cw, points = prob.T_cw, prob.points
     for _ in range(cfg.global_ba_iters):
         T_cw, points = _gn_iteration(T_cw, points, prob, cam, cfg, comp_w, delta, cg_iters,
-                                     obs_per_kf)
+                                     obs_per_kf, group)
     e, _, _, behind = _residual_components(T_cw, points, prob, cam)
     chi = torch.sum(e * e * comp_w, -1) * prob.inv_sigma2
     inlier = prob.obs_valid & (chi < chi2_th) & (~behind)
@@ -320,6 +338,28 @@ def global_ba_step_state(state: SlamState, cfg: SlamConfig, cg_iters: int = 20) 
     return _write_back(state, prob, res)
 
 
-def global_ba_step_state_sharded(state: SlamState, cfg: SlamConfig, mesh, cg_iters: int = 20):
-    """The observation-sharded multi-device global BA: not ported."""
-    raise NotImplementedError("the sharded global bundle adjustment is not ported yet")
+@precision.scoped
+def global_ba_step_state_sharded(state: SlamState, cfg: SlamConfig, mesh,
+                                 cg_iters: int = 20) -> SlamState:
+    """`global_ba_step_state` with the O(M) observation sums split over
+    the mesh's `pt` axis (`parallel/dist_ba.make_distributed_global_ba`):
+    the engine path of `SlamSystem(mesh=...)`. M is padded to a multiple
+    of the axis size with `obs_valid=False` rows (which add nothing), each
+    rank takes its rows, and the inlier rows are gathered for the
+    write-back. The refined poses and points are the same on every rank
+    (all-reduced sums); every rank of the mesh must call this together."""
+    prob = problem_from_state(state, cfg)
+    M = prob.obs_kf.shape[0]
+    pad = (-M) % axis_size(mesh, PT_AXIS)
+
+    def rows(x):
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+        return shard_rows(x, mesh, PT_AXIS)
+
+    local = prob.replace(**{k: rows(getattr(prob, k)) for k in (
+        "obs_kf", "obs_pt", "obs_uvr", "inv_sigma2", "is_stereo", "obs_valid")})
+    res = dist_ba.make_distributed_global_ba(mesh, cfg.camera, cfg.optimizer, cg_iters)(local)
+    res = GlobalBAResult(res.T_cw, res.points, gather_rows(res.inlier, mesh, PT_AXIS)[:M],
+                         gather_rows(res.chi2, mesh, PT_AXIS)[:M])
+    return _write_back(state, prob, res)

@@ -32,7 +32,15 @@ ties fall the same way. Each RANSAC draws from a generator seeded with
 the JAX module's integers on the keyframe's device: the same seeds, but
 another random stream. Profiler ranges `loop.detect`, `loop.sim3`,
 `loop.confirm`, `loop.pose_graph`, `loop.fuse` and `loop.global_ba` split
-a call for `chip_smoke.py`. A multi-device `mesh` is refused.
+a call for `chip_smoke.py`.
+
+With a device `mesh` (`parallel/mesh.make_mesh`), the vocabulary
+database's rows are split over the `kf` axis: each rank holds and scores
+its own rows and the (F,) score row is gathered
+(`parallel/dist_bow.make_sharded_l1_scores`), and the global BA after a
+closure runs with its observations split over `pt`
+(`global_ba_step_state_sharded`). Every rank runs the same closer on the
+same keyframes, so the collectives meet in order.
 
 `database_from_numpy` / `database_to_numpy` carry the database to and
 from the JAX closer's arrays (`word_db`/`val_db`, or `bow_db`), and
@@ -56,6 +64,7 @@ from orb_slam2_ssd_semantic_tpu_torch.io.artifacts import find_checkpoint, warn_
 from orb_slam2_ssd_semantic_tpu_torch.mapping import place_recognition as pr
 from orb_slam2_ssd_semantic_tpu_torch.mapping.global_ba import (
     global_ba_step_state,
+    global_ba_step_state_sharded,
     problem_from_state,
 )
 from orb_slam2_ssd_semantic_tpu_torch.mapping.local_mapping import fuse_pair
@@ -71,6 +80,14 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.pose_graph import (
 )
 from orb_slam2_ssd_semantic_tpu_torch.mapping.sim3_opt import optimize_sim3
 from orb_slam2_ssd_semantic_tpu_torch.ops import match as match_ops
+from orb_slam2_ssd_semantic_tpu_torch.parallel import dist_bow
+from orb_slam2_ssd_semantic_tpu_torch.parallel.mesh import (
+    KF_AXIS,
+    check_mesh,
+    gather_rows,
+    mesh_device,
+    shard_rows,
+)
 from orb_slam2_ssd_semantic_tpu_torch.utils import precision
 from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import nanmedian
 
@@ -99,10 +116,15 @@ class LoopCloser:
         binary or text); "auto" resolves the trained
         `checkpoints/orbvoc_synth.npz` and, when it is missing, warns and
         takes the flat codebook (as the JAX closer does); None takes the
-        flat codebook. `device=None` runs on the card."""
-        if mesh is not None:
-            raise NotImplementedError("the multi-device keyframe database is not ported yet")
+        flat codebook. `device=None` runs on the card, or on the mesh's
+        device. `mesh`: a (kf, pt) mesh shards the vocabulary database
+        over `kf` and the post-closure global BA over `pt`."""
         self.cfg = cfg
+        self.mesh = mesh
+        self._sharded_scores = None
+        if mesh is not None:
+            check_mesh(mesh)
+            device = mesh_device(mesh) if device is None else device
         self.device = device_mod.resolve(device)
         # Consistency chains [(covisibility group, consecutive count)] of
         # the previous keyframe's candidates (mvConsistentGroups).
@@ -121,6 +143,10 @@ class LoopCloser:
             self.vocab = voc.to_device(vocab, self.device)
             self.word_db = torch.full((F, K), -1, dtype=torch.int64, device=self.device)
             self.val_db = torch.zeros((F, K), dtype=torch.float32, device=self.device)
+            if mesh is not None:
+                self._sharded_scores = dist_bow.make_sharded_l1_scores(mesh, self.vocab.n_words)
+                self.word_db = shard_rows(self.word_db, mesh, KF_AXIS)
+                self.val_db = shard_rows(self.val_db, mesh, KF_AXIS)
         else:
             self.bow_db = torch.zeros((F, pr.VOCAB_SIZE), dtype=torch.float32, device=self.device)
 
@@ -132,6 +158,11 @@ class LoopCloser:
         k = self.vocab.children.shape[1]
         return f"vocabulary ({k}^{self.vocab.depth}, {self.vocab.n_words} words)"
 
+    def _whole(self, db: torch.Tensor) -> torch.Tensor:
+        """The whole (F, K) database (under a mesh, gathered from each
+        rank's rows: a collective)."""
+        return db if self._sharded_scores is None else gather_rows(db, self.mesh, KF_AXIS)
+
     # ---- carrying the database across -----------------------------------
 
     def database_from_numpy(self, db: dict) -> None:
@@ -140,14 +171,18 @@ class LoopCloser:
         if self.vocab is not None:
             self.word_db = torch.from_numpy(np.asarray(db["word_db"]).astype(np.int64)).to(self.device)
             self.val_db = torch.from_numpy(np.array(db["val_db"], np.float32)).to(self.device)
+            if self._sharded_scores is not None:
+                self.word_db = shard_rows(self.word_db, self.mesh, KF_AXIS)
+                self.val_db = shard_rows(self.val_db, self.mesh, KF_AXIS)
         else:
             self.bow_db = torch.from_numpy(np.array(db["bow_db"], np.float32)).to(self.device)
 
     def database_to_numpy(self) -> dict:
-        """The database with the JAX closer's names and dtypes."""
+        """The database with the JAX closer's names and dtypes (gathered
+        from the ranks under a mesh)."""
         if self.vocab is not None:
-            return {"word_db": self.word_db.cpu().numpy().astype(np.int32),
-                    "val_db": self.val_db.cpu().numpy()}
+            return {"word_db": self._whole(self.word_db).cpu().numpy().astype(np.int32),
+                    "val_db": self._whole(self.val_db).cpu().numpy()}
         return {"bow_db": self.bow_db.cpu().numpy()}
 
     def loop_state_from_numpy(self, st: dict) -> None:
@@ -166,10 +201,14 @@ class LoopCloser:
         if self.vocab is not None:
             words = voc.quantize(self.vocab, desc, valid)
             vals = voc.bow_columns(words, self.vocab.idf)
-            self.word_db = self.word_db.clone()
-            self.val_db = self.val_db.clone()
-            self.word_db[kf_id] = words
-            self.val_db[kf_id] = vals
+            row = kf_id
+            if self._sharded_scores is not None:  # only the rank owning the slot writes it
+                row -= self.mesh.get_local_rank(KF_AXIS) * self.word_db.shape[0]
+            if 0 <= row < self.word_db.shape[0]:
+                self.word_db = self.word_db.clone()
+                self.val_db = self.val_db.clone()
+                self.word_db[row] = words
+                self.val_db[row] = vals
             return self._score_db(words, vals)
         vec = pr.bow_vector(desc, valid)
         self.bow_db = self.bow_db.clone()
@@ -185,6 +224,10 @@ class LoopCloser:
         return pr.bow_scores(pr.bow_vector(desc, valid), self.bow_db).cpu().numpy()
 
     def _score_db(self, words, vals) -> np.ndarray:
+        """The (F,) scores of a frame's BoW columns against the database:
+        with a mesh each rank scores its rows and the row is gathered."""
+        if self._sharded_scores is not None:
+            return self._sharded_scores(words, vals, self.word_db, self.val_db).cpu().numpy()
         return voc.l1_scores(words, vals, self.word_db, self.val_db,
                              self.vocab.n_words).cpu().numpy()
 
@@ -474,7 +517,10 @@ class LoopCloser:
         # (meaningful only after GBA; no reference analogue).
         if cfg.loop.run_global_ba:
             with record_function("loop.global_ba"):
-                state = global_ba_step_state(state, cfg)
+                if self.mesh is not None:
+                    state = global_ba_step_state_sharded(state, cfg, self.mesh)
+                else:
+                    state = global_ba_step_state(state, cfg)
                 if cfg.loop.correction_guard:
                     err_after = map_median_reproj_error(state, cfg)
                     if not np.isfinite(err_after) or err_after > (

@@ -409,12 +409,20 @@ def fused_track_step(state: SlamState, gray, depth_img, last_frame: Frame, last_
 
 class Tracker:
     """Host-side per-frame sequencing; owns the map state and the motion
-    model. `device=None` runs on the card (raises without one)."""
+    model. `device=None` runs on the card (raises without one), or on the
+    mesh's device. `mesh`: a (kf, pt) mesh from `parallel/mesh.make_mesh`,
+    handed to the loop closer (its database and global BA shard over it);
+    tracking itself runs whole on every rank."""
 
-    def __init__(self, cfg: SlamConfig, device=None):
+    def __init__(self, cfg: SlamConfig, device=None, mesh=None):
         from orb_slam2_ssd_semantic_tpu_torch.utils.metrics import Metrics
 
+        if mesh is not None and device is None:
+            from orb_slam2_ssd_semantic_tpu_torch.parallel.mesh import mesh_device
+
+            device = mesh_device(mesh)
         self.device = device_mod.resolve(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.metrics = Metrics()
         self.state = empty_state(cfg, self.device)
@@ -442,7 +450,7 @@ class Tracker:
         if cfg.loop.enabled or cfg.loop.enable_relocalization:
             from orb_slam2_ssd_semantic_tpu_torch.mapping.loop_closing import LoopCloser
 
-            self.loop_closer = LoopCloser(cfg, device=self.device)
+            self.loop_closer = LoopCloser(cfg, device=self.device, mesh=mesh)
         else:
             self.loop_closer = None
         self.n_loops_closed = 0

@@ -3,10 +3,11 @@ JAX package, and its import loads no matplotlib (only the viewers need
 it); its entry points (the Tracker, the whole-sequence scan and
 segmented runner, `SlamSystem`, the detector, the occupancy maps, the
 batched consumer, registration and undistortion, the live app and the web
-viewer) run on the card unless asked for the CPU; `SlamSystem`
-refuses a device mesh and runs each other part on the CPU when asked (the
-dense map, the stereo and monocular front ends, map and occupancy
-persistence); the dynamic masks (the Tracker's `dynamic.enable_*`, the
+viewer) run on the card unless asked for the CPU, and so does
+`parallel/mesh.make_mesh`, which also needs a process group; `SlamSystem`
+takes only a (kf, pt) device mesh and runs each other part on the CPU when
+asked (the dense map, the stereo and monocular front ends, map and
+occupancy persistence); the dynamic masks (the Tracker's `dynamic.enable_*`, the
 scan's and the segmented runner's `use_flow` and `use_geom`), loop
 closing and relocalization, together or alone, are accepted."""
 
@@ -36,8 +37,11 @@ def test_import_leaves_jax_triton_and_reference_unloaded():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "new = {'ops.register', 'apps.live_rgbd', 'apps.web_viewer', 'viz'}\n"
+        "new = {'ops.register', 'apps.live_rgbd', 'apps.web_viewer', 'viz', 'parallel.mesh',\n"
+        "       'parallel.dist_ba', 'parallel.dist_bow', 'parallel.dist_occupancy'}\n"
         "assert new <= {n[len(p.__name__) + 1:] for n in names}, names\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'an import made a process group'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'triton', 'orb_slam2_ssd_semantic_tpu')]\n"
         "print(bad)\n"
@@ -121,12 +125,36 @@ def test_live_app_register_and_viewer_default_to_the_card(tmp_path):
 
 @pytest.mark.parametrize("call", ["mesh"])
 def test_slam_system_refuses_unported_parts(call):
-    """The multi-device code is a later slice: a mesh is refused, naming
-    it."""
+    """Every part is ported; a `mesh` that is not a (kf, pt) DeviceMesh from
+    `parallel/mesh.make_mesh` is refused, naming what it takes (the mesh
+    paths themselves: `test_torch_mesh_engine.py`)."""
+    from orb_slam2_ssd_semantic_tpu_torch.mapping.loop_closing import LoopCloser
     from orb_slam2_ssd_semantic_tpu_torch.system import SlamSystem
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         SlamSystem(SlamConfig(loop=NO_LOOP), device="cpu", **{call: object()})
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        LoopCloser(SlamConfig(), device="cpu", **{call: object()})
+
+
+def test_make_mesh_defaults_to_the_card_and_needs_a_group():
+    """`make_mesh(device=None)` takes the card and raises without one; on
+    the CPU, asked for, it needs the caller's process group: nothing
+    falls back to gloo on its own."""
+    import torch.distributed as dist
+
+    from orb_slam2_ssd_semantic_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(1, 1, device="cuda")
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        make_mesh(device="cpu")
+    assert not dist.is_initialized()
 
 
 def _tiny_config():

@@ -222,7 +222,7 @@ def test_loopcloser_missing_vocabulary_warns_and_refuses_what_is_not_ported(monk
         warnings.simplefilter("error")
         with pytest.raises(UserWarning):
             tlc.LoopCloser(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tlc.LoopCloser(cfg, device="cpu", mesh=object())
     # A keyframe past the recency gate runs loop detection, which finds
     # no candidate in an empty map.
