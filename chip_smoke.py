@@ -29,11 +29,23 @@ phase 14 phase 10's views and phase 7's map.
   4. the main path: `Tracker.process` on a rendered synthetic RGB-D
      sequence at 640x480 with the default config (loop closing and
      relocalization off), long enough for local mapping to run; checks
-     ATE, tracking status, map size, and that B1 launched;
+     ATE, tracking status, map size, and that B1 launched; from each
+     local-mapping dispatch until `process` returns, CUDA's sync debug
+     mode is "error" (`async_mapping`: the frame must not wait on local
+     mapping); a steady window and a keyframe frame with local mapping
+     are profiled (syncs, copies and launches a frame, and inside the
+     `local_mapping` range);
   5. local mapping at a 12 + 8 keyframe window (6 * 20 = 120 unknowns, the
      size at which local BA routes its reduced camera system to B2) on the
      phase-4 map; checks that B2 launched and that the refined poses agree
-     with the same step forced through B2's plain version;
+     with the same step forced through B2's plain version; 5b: the step at
+     the default 16 + 8 window and at 12 + 8 under sync debug mode
+     "error", no stream sync or synchronous copy in its profiled range,
+     its dispatch's host ms against the same call ending in a
+     synchronize, and B1's and B2's launches in it; 5c: `ic_angle`,
+     `gaussian_blur` and `steered_brief` (ORB-SLAM2's orientation and
+     descriptor, the references of the extractor's fast path) on phase
+     4's first view, card against CPU;
   6. relocalization: `Tracker.process` with
      `LoopConfig(enabled=False, enable_relocalization=True)` on phase 4's
      frames, with a NAMED vocabulary (a DBoW2 tree of the trained file's
@@ -295,6 +307,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from orb_slam2_ssd_semantic_tpu_torch.apps import (
     cloud_to_occupancy,
@@ -349,6 +362,7 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.global_ba import (
     global_ba_step_state_sharded,
     problem_from_state,
 )
+from orb_slam2_ssd_semantic_tpu_torch.mapping import local_mapping as local_mapping_mod
 from orb_slam2_ssd_semantic_tpu_torch.mapping.local_mapping import (
     fuse_map_points,
     local_mapping_step,
@@ -364,9 +378,10 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.pose_graph import (
     optimize_pose_graph_pcg,
     optimize_pose_graph_sim3,
 )
-from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build, cuda_match, cuda_solve
+from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build, cuda_match, cuda_solve, orb_descriptor
+from orb_slam2_ssd_semantic_tpu_torch.ops import image as image_ops
 from orb_slam2_ssd_semantic_tpu_torch.ops.homography import sample_minimal_sets
-from orb_slam2_ssd_semantic_tpu_torch.ops.match import window_mask
+from orb_slam2_ssd_semantic_tpu_torch.ops.match import popcount32, window_mask
 from orb_slam2_ssd_semantic_tpu_torch.ops.register import register_depth_to_color, undistort_image
 from orb_slam2_ssd_semantic_tpu_torch.parallel import dist_bow, dist_occupancy
 from orb_slam2_ssd_semantic_tpu_torch.parallel.mesh import (
@@ -424,6 +439,9 @@ N_FRAMES = 96
 # Steady frames (no keyframe) traced with torch.profiler for the device
 # breakdown; they are left out of the per-frame timing statistics.
 PROFILE_FRAMES = range(40, 45)
+# The keyframe frame profiled on its own: the third keyframe, where local
+# mapping first runs.
+PROFILE_KEYFRAME = 62
 # B1: the main path's three shapes first; then a T of six splits (384), Q and
 # T that fill no tile (300, 200: a last split of 8 targets), a T under one
 # split (40), a T whose splits are two staged chunks long (4096), a wide one.
@@ -455,6 +473,13 @@ SPD_RTOL, SPD_ATOL, SPD_RESID, SPD_RESID_ILL = 2e-2, 2e-3, 1e-3, 5e-2
 # comparison could pass with a solve that does nothing.
 POSE_ATOL = 2e-4
 POSE_MIN_MOVE = 4 * POSE_ATOL
+# Phase 5b: host-time repeats of each local-mapping step. 5c: keypoints
+# drawn on phase 4's first view (seeded), at least DESC_MARGIN px inside;
+# angles card against CPU within DESC_ANGLE_TOL rad, the blur within
+# DESC_BLUR_TOL gray levels, descriptors equal.
+ASYNC_REPEATS = 2
+DESC_POINTS, DESC_MARGIN = 1024, 20
+DESC_ANGLE_TOL, DESC_BLUR_TOL = 1e-5, 1e-4
 # Phase 6: frames tracked with relocalization on before the checks (the
 # default config's second keyframe falls at frame 31), frames of each
 # half of the localization-only test, kidnapped views, frames relocalized
@@ -1198,23 +1223,44 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
     n_frames = len(frames)
     cfg = main_path_config()
     tracker = Tracker(cfg, device=dev)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    profiled = PROFILE_FRAMES if dev.type == "cuda" else range(0)
-    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                              torch.profiler.ProfilerActivity.CUDA]
-                                  ) if len(profiled) else None
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    profiled = PROFILE_FRAMES if card else range(0)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=activities) if len(profiled) else None
+    prof_kf = torch.profiler.profile(activities=activities) if card else None
     frame_ms, poses = [], []
+
+    def step_no_wait(state, c):
+        # From the dispatch on, any wait on the card raises, until the
+        # frame's `process` returns (async_mapping).
+        torch.cuda.set_sync_debug_mode("error")
+        return local_mapping_step(state, c)
+
+    if card:
+        local_mapping_mod.local_mapping_step = step_no_wait
     _reset_counts()
-    for i, (gray, depth) in enumerate(frames):
-        if i == profiled.start:
-            prof.start()
-        t = time.perf_counter()
-        poses.append(tracker.process(gray, depth, float(seq.stamps[i])))
-        sync()
-        if i not in profiled:
-            frame_ms.append((time.perf_counter() - t) * 1e3)
-        if len(profiled) and i == profiled[-1]:
-            prof.stop()
+    try:
+        for i, (gray, depth) in enumerate(frames):
+            if len(profiled) and i == profiled.start:
+                prof.start()
+            if card and i == PROFILE_KEYFRAME:
+                prof_kf.start()
+            t = time.perf_counter()
+            try:
+                poses.append(tracker.process(gray, depth, float(seq.stamps[i])))
+            finally:
+                if card:
+                    torch.cuda.set_sync_debug_mode(0)
+            sync()
+            if i not in profiled and i != PROFILE_KEYFRAME:
+                frame_ms.append((time.perf_counter() - t) * 1e3)
+            if len(profiled) and i == profiled[-1]:
+                prof.stop()
+            if card and i == PROFILE_KEYFRAME:
+                prof_kf.stop()
+    finally:
+        local_mapping_mod.local_mapping_step = local_mapping_step
     counts = _counts()
     ate = evaluate_ate_xyz(tracker.camera_positions(), seq.gt_positions()).rmse
     statuses = [s["status"] for s in tracker.stats[1:]]
@@ -1238,6 +1284,20 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
         _log(f"profiled frames {profiled.start}-{profiled[-1]}: " + json.dumps(breakdown))
         _log(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=12,
                                        max_name_column_width=50))
+    if card:
+        kf = dict(frame=PROFILE_KEYFRAME, runtime_calls=_runtime_in(prof_kf),
+                  local_mapping=_runtime_in(prof_kf, "local_mapping"))
+        res["keyframe_profile"] = kf
+        steady = breakdown["runtime_calls_per_frame"]
+        _log(f"syncs (cudaStreamSynchronize) a steady frame {steady.get('cudaStreamSynchronize', 0)}"
+             f", keyframe frame {PROFILE_KEYFRAME} {kf['runtime_calls'].get('cudaStreamSynchronize', 0)}"
+             f", inside its local_mapping range {kf['local_mapping']}: " + json.dumps(kf))
+        if not kf["local_mapping"].get("cudaLaunchKernel"):
+            raise AssertionError(f"frame {PROFILE_KEYFRAME} ran no local mapping: {kf}")
+        waits = {k: v for k, v in kf["local_mapping"].items() if k in _SYNC_CALLS}
+        if waits:
+            raise AssertionError(f"local mapping waited on the card at frame {PROFILE_KEYFRAME}: "
+                                 f"{waits}")
     if not ate < 0.01:
         raise AssertionError(f"main path ATE {ate:.5f} m >= 0.01 m")
     if not ok_frac >= 0.9:
@@ -1289,6 +1349,144 @@ def run_b2_path(tracker, dev) -> dict:
     if not pose_err <= POSE_ATOL:
         raise AssertionError(f"kernel vs plain local BA poses differ by {pose_err:.3e} "
                              f"> {POSE_ATOL}")
+    return res
+
+
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
+
+
+def _runtime_in(prof, range_name: str | None = None) -> dict:
+    """CUDA runtime calls (launches, copies, syncs) in a profile: all of
+    them, or those made while a host range named `range_name` was open.
+    Read from the raw trace events: building the profiler's event tree
+    takes seconds for a local-mapping step's ~20,000 launches."""
+    names = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync") + _SYNC_CALLS
+    events = prof.profiler.kineto_results.events()
+    spans = [(e.start_ns(), e.end_ns()) for e in events
+             if e.name() == range_name and e.device_type() == torch.autograd.DeviceType.CPU]
+    out = {}
+    for e in events:
+        name = e.name()
+        if name not in names:
+            continue
+        if range_name is None or any(a <= e.start_ns() <= b for a, b in spans):
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def check_async_mapping(tracker, dev) -> dict:
+    """Phase 5b: `local_mapping_step` on phase 4's map at the default
+    16 + 8 window (its solve `torch.linalg.solve_ex`) and at 12 + 8 (B2),
+    with CUDA's sync debug mode "error" (any wait on the card raises),
+    then under the profiler (no stream sync or synchronous copy inside
+    its range), and timed: the dispatch's host ms (what the tracker waits
+    with `async_mapping`) against the same call ending in a synchronize
+    (JAX's `test_map_hygiene.py` gate compares the two; here a record,
+    not a gate). The runs must repeat each other bit for bit."""
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    cfg = tracker.cfg
+    state = tracker.state
+    cfg5 = cfg.replace(map=dataclasses.replace(cfg.map, local_ba_window=12,
+                                               local_ba_fixed_anchors=8))
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if card:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    t0 = time.perf_counter()
+    res = {}
+    for label, c in (("window_16_8", cfg), ("window_12_8", cfg5)):
+        def call():
+            with highest_precision(), record_function("local_mapping"):
+                return local_mapping_step(state, c)
+
+        sync()
+        _reset_counts()
+        if card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            first = call()
+        finally:
+            if card:
+                torch.cuda.set_sync_debug_mode(0)
+        counts = _counts()
+        sync()
+        with torch.profiler.profile(activities=activities) as prof:
+            again = call()
+            sync()
+        dispatch, synced = [], []
+        for _ in range(ASYNC_REPEATS):
+            sync()
+            t = time.perf_counter()
+            call()
+            dispatch.append((time.perf_counter() - t) * 1e3)
+            sync()
+            t = time.perf_counter()
+            call()
+            sync()
+            synced.append((time.perf_counter() - t) * 1e3)
+        repeats = all(torch.equal(getattr(first.kfs, f), getattr(again.kfs, f))
+                      for f in ("T_cw", "kp_point", "valid")) and torch.equal(
+            first.points.pos, again.points.pos)
+        r = dict(launches=counts, runtime_calls=_runtime_in(prof, "local_mapping"),
+                 dispatch_ms=statistics.median(dispatch), synced_ms=statistics.median(synced),
+                 repeats_bit_for_bit=repeats)
+        r["dispatch_over_synced"] = r["dispatch_ms"] / r["synced_ms"]
+        res[label] = r
+        _log(f"5b local_mapping_step at {label}: " + json.dumps(r))
+        waits = {k: v for k, v in r["runtime_calls"].items() if k in _SYNC_CALLS}
+        if card and waits:
+            raise AssertionError(f"local_mapping_step at {label} waited on the card: {waits}")
+        if card and counts["window_match"] == 0:
+            raise AssertionError(f"local_mapping_step at {label} never launched B1")
+        if card and (counts["spd_solve"] > 0) != (label == "window_12_8"):
+            raise AssertionError(f"local_mapping_step at {label}: B2 launches {counts}")
+        if not repeats:
+            raise AssertionError(f"local_mapping_step at {label} did not repeat itself")
+    res["phase_s"] = time.perf_counter() - t0
+    _log(f"phase 5b took {res['phase_s']:.1f} s")
+    return res
+
+
+def check_descriptor_references(dev, rendered) -> dict:
+    """Phase 5c: ORB-SLAM2's intensity-centroid angle, the 7x7 pre-blur and
+    rotation-steered BRIEF on phase 4's first view, card against CPU, at
+    DESC_POINTS seeded keypoints (every 17th invalid). The descriptors are
+    held equal with the CPU's angles on both sides; with the card's own
+    angles the differing bits are logged."""
+    gray = torch.from_numpy(np.ascontiguousarray(rendered[1][0][0], np.float32))
+    h, w = gray.shape
+    rng = np.random.default_rng(0)
+    uv = torch.from_numpy(np.stack([rng.uniform(DESC_MARGIN, w - DESC_MARGIN, DESC_POINTS),
+                                    rng.uniform(DESC_MARGIN, h - DESC_MARGIN, DESC_POINTS)],
+                                   -1).astype(np.float32))
+    valid = torch.ones(DESC_POINTS, dtype=torch.bool)
+    valid[::17] = False
+
+    def run(device, angle=None):
+        g, u, v = gray.to(device), uv.to(device), valid.to(device)
+        ang = orb_descriptor.ic_angle(g, u, v)
+        blur = image_ops.gaussian_blur(g)
+        desc = orb_descriptor.steered_brief(torch.round(blur), u,
+                                            ang if angle is None else angle.to(device), v)
+        return ang.cpu(), blur.cpu(), desc.cpu()
+
+    a_cpu, b_cpu, d_cpu = run(torch.device("cpu"))
+    a_dev, b_dev, d_dev = run(dev, angle=a_cpu)
+    d_own = run(dev)[2]
+    bits = int(popcount32(torch.bitwise_xor(d_own, d_cpu)).sum())
+    res = dict(keypoints=DESC_POINTS, angle_max_abs_err=float((a_dev - a_cpu).abs().max()),
+               blur_max_abs_err=float((b_dev - b_cpu).abs().max()),
+               descriptors_equal=bool(torch.equal(d_dev, d_cpu)),
+               bits_differing_with_card_angles=bits)
+    _log("5c descriptor references, card against CPU: " + json.dumps(res))
+    if not res["angle_max_abs_err"] <= DESC_ANGLE_TOL:
+        raise AssertionError(f"ic_angle card vs CPU {res['angle_max_abs_err']:.3e} > "
+                             f"{DESC_ANGLE_TOL}")
+    if not res["blur_max_abs_err"] <= DESC_BLUR_TOL:
+        raise AssertionError(f"gaussian_blur card vs CPU {res['blur_max_abs_err']:.3e} > "
+                             f"{DESC_BLUR_TOL}")
+    if not res["descriptors_equal"]:
+        raise AssertionError("steered_brief on the card differs from the CPU's")
     return res
 
 
@@ -4230,7 +4428,9 @@ def main() -> int:
     main_res = run_main_path(dev, rendered=rendered)
     tracker = main_res.pop("tracker")
     b2_path = run_b2_path(tracker, dev)
+    async_mapping = check_async_mapping(tracker, dev)
     rendered = main_res.pop("rendered")
+    descriptors = check_descriptor_references(dev, rendered)
     reloc = run_reloc_path(dev, rendered, card)
     loop = run_loop_path(dev, rendered[3], card)
     t8 = time.perf_counter()
@@ -4321,7 +4521,16 @@ def main() -> int:
          f"{mesh['global_ba']['sharded_global_ba_ms']:.1f} ms (single "
          f"{mesh['global_ba']['global_ba_ms']:.1f}), at {MESH_TWO_RANK_GBA_ITERS} iterations "
          f"{mesh['global_ba']['sharded_ms_at_two_rank_iters']:.1f} ms at one rank and "
-         f"{mesh['two_ranks']['gba_ms']:.1f} ms at two ranks over gloo; phase 14 {mesh['phase_s']:.1f} s; card: {card}")
+         f"{mesh['two_ranks']['gba_ms']:.1f} ms at two ranks over gloo; phase 14 {mesh['phase_s']:.1f} s; "
+         f"local_mapping_step at 16 + 8: dispatch "
+         f"{async_mapping['window_16_8']['dispatch_ms']:.2f} ms against "
+         f"{async_mapping['window_16_8']['synced_ms']:.2f} ms synchronized, B1 "
+         f"{async_mapping['window_16_8']['launches']['window_match']} launches, at 12 + 8 B2 "
+         f"{async_mapping['window_12_8']['launches']['spd_solve']}; syncs a steady frame "
+         f"{main_res['profile']['runtime_calls_per_frame'].get('cudaStreamSynchronize', 0)}, "
+         f"keyframe frame {PROFILE_KEYFRAME} "
+         f"{main_res['keyframe_profile']['runtime_calls'].get('cudaStreamSynchronize', 0)}; "
+         f"5c angles within {descriptors['angle_max_abs_err']:.2e} rad; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from orb_slam2_ssd_semantic_tpu_torch.config import OrbConfig
@@ -20,7 +21,7 @@ from orb_slam2_ssd_semantic_tpu_torch.ops.orb_descriptor import (
     extract_patches,
     ic_angle_from_patches,
 )
-from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import top_k
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import device_constant, top_k
 
 
 @dataclasses.dataclass
@@ -42,10 +43,15 @@ class Features:
         return Features(**{f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self)})
 
 
+@device_constant
+def _level_scales(scale_factor: float, n_levels: int) -> np.ndarray:
+    return np.array([scale_factor**i for i in range(n_levels)], np.float32)
+
+
 def scale_factors(cfg: OrbConfig, device=None) -> torch.Tensor:
-    """(L,) per-level scale (1.2^l)."""
-    return torch.tensor([cfg.scale_factor**i for i in range(cfg.n_levels)],
-                        dtype=torch.float32, device=device)
+    """(L,) per-level scale (1.2^l): Python's double power rounded to f32,
+    built once per device and shared (never written into)."""
+    return _level_scales(cfg.scale_factor, cfg.n_levels, device=device)
 
 
 def sigma2_per_level(cfg: OrbConfig, device=None) -> torch.Tensor:

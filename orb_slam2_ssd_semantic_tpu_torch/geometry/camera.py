@@ -4,15 +4,23 @@ package's `geometry/camera.py`)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import device_constant
+
+
+@device_constant
+def _pinhole(fx: float, fy: float, cx: float, cy: float, dtype: torch.dtype) -> torch.Tensor:
+    k = [[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]]
+    return torch.from_numpy(np.array(k)).to(dtype)
 
 
 def intrinsics_matrix(cam: CameraConfig, dtype=torch.float32, device=None) -> torch.Tensor:
-    """The 3x3 pinhole matrix K."""
-    return torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
-                        dtype=dtype, device=device)
+    """The 3x3 pinhole matrix K, built once per device and shared (never
+    written into)."""
+    return _pinhole(cam.fx, cam.fy, cam.cx, cam.cy, dtype, device=device)
 
 
 def project(pts_cam: torch.Tensor, cam: CameraConfig):

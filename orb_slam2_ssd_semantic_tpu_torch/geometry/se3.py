@@ -123,7 +123,7 @@ def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)  # an assignment of a host number to one element copies it over
     return T
 
 

@@ -8,12 +8,19 @@ Gauss-Newton step: residuals and analytic Jacobians as component lists of
 one index_add over (w, slot) keys, the reduced camera system
 S = Hcc - Hcp Hpp^-1 Hcp', its damped solve, and point back-substitution.
 The solve goes through the SPD kernel (`ops/cuda_solve.py`) when
-6W <= 128, else torch.linalg.solve — the JAX package's routing. With
+6W <= 128, else torch.linalg.solve_ex — the JAX package's routing. With
 `ba_reduction_dtype="bfloat16"` the two Schur products take operands
 rounded to bfloat16 and multiply them in f32 (exact for bf16 values),
 which is what a TPU's default matmul precision does. Two
 phases (Huber, then clean after a chi2 gate) with best-state tracking
-and gain-based early exit; each early-exit test is one host sync.
+and gain-based early exit.
+
+Nothing here waits on the card, so a caller can dispatch the whole
+adjustment and go on (the tracker's `async_mapping`). The early exit is
+JAX's `while_loop` as a fixed loop of `n_iters` steps whose carry
+freezes on the device once the gain test fires; the last-vs-best choice
+is a select; the large solve skips `torch.linalg.solve`'s host check
+for a singular matrix (a non-finite step is zeroed, as in JAX).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig, OptimizerConfi
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
 from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_solve
 from orb_slam2_ssd_semantic_tpu_torch.ops.linalg import inv3x3_cols
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import put
 
 
 @dataclasses.dataclass
@@ -46,6 +54,7 @@ class BAResult:
     points: torch.Tensor
     inlier: torch.Tensor  # (W, K) bool
     chi2: torch.Tensor  # (W, K)
+    iters: torch.Tensor  # (2,) int32 Gauss-Newton steps each phase took before its exit
 
 
 def _residual_components(T_cw, points, prob: BAProblem, cam: CameraConfig):
@@ -110,10 +119,11 @@ def _huber_cost(chi, delta, use_huber: bool):
 
 def solve_reduced(S_mat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """The damped SPD reduced camera system: the SPD kernel up to 128
-    unknowns (its plain version on the CPU), torch.linalg.solve above."""
+    unknowns (its plain version on the CPU), torch.linalg.solve_ex above
+    (the same LU as `solve`, without its host-side singularity check)."""
     if S_mat.shape[0] <= cuda_solve.PAD:
         return cuda_solve.spd_solve(S_mat, rhs)
-    return torch.linalg.solve(S_mat, rhs)
+    return torch.linalg.solve_ex(S_mat, rhs)[0]
 
 
 def _reduction_operand(dtype: str):
@@ -135,12 +145,11 @@ def local_bundle_adjust(prob: BAProblem, cam: CameraConfig,
     N = prob.points.shape[0]
     dev = prob.points.device
     f32 = torch.float32
-    comp_w = torch.where(prob.is_stereo[..., None], torch.ones((1, 1, 3), dtype=f32, device=dev),
-                         torch.tensor([[[1.0, 1.0, 0.0]]], dtype=f32, device=dev))
-    chi2_th = torch.where(prob.is_stereo, torch.tensor(cfg.chi2_stereo, device=dev),
-                          torch.tensor(cfg.chi2_mono, device=dev))
-    delta = torch.where(prob.is_stereo, torch.tensor(cfg.huber_delta_stereo, device=dev),
-                        torch.tensor(cfg.huber_delta_mono, device=dev))
+    # Residual component weights: (1, 1, 1) stereo, (1, 1, 0) mono.
+    comp_w = torch.cat([torch.ones((W, K, 2), dtype=f32, device=dev),
+                        prob.is_stereo[..., None].to(f32)], dim=-1)
+    chi2_th = torch.where(prob.is_stereo, cfg.chi2_stereo, cfg.chi2_mono)
+    delta = torch.where(prob.is_stereo, cfg.huber_delta_stereo, cfg.huber_delta_mono)
     slot = prob.point_slot.clamp(0, N - 1)
     obs_valid = (prob.point_slot >= 0) & prob.point_valid[slot]
     free_pose = (~prob.fixed).to(f32)
@@ -149,7 +158,6 @@ def local_bundle_adjust(prob: BAProblem, cam: CameraConfig,
     # per-(pose, point) blocks; summed over w, the point sums.
     slot_eff = torch.where(obs_valid, slot, torch.full_like(slot, N))
     key = (torch.arange(W, device=dev)[:, None] * (N + 1) + slot_eff).reshape(-1)
-    wi = torch.arange(W, device=dev)
 
     def gn_step(T_cw, points, inlier_w, use_huber: bool):
         e, J_pose, J_point, behind = _residual_components(T_cw, points, prob, cam)
@@ -175,7 +183,8 @@ def local_bundle_adjust(prob: BAProblem, cam: CameraConfig,
         pp12 += [-sum(J_point[r][i] * wc[r] * e[r] for r in range(3)) for i in range(3)]
         hcp = [sum(JtW[r][i] * J_point[r][j] for r in range(3)) for i in range(6) for j in range(3)]
         stacked = torch.stack(hcp + pp12, dim=-1).reshape(W * K, 30)
-        red = torch.zeros((W * (N + 1), 30), dtype=f32, device=dev).index_add_(0, key, stacked)
+        red = put(torch.zeros((W * (N + 1), 30), dtype=f32, device=dev), key, stacked,
+                  accumulate=True)
         red = red.reshape(W, N + 1, 30)[:, :N].permute(2, 0, 1)  # (30, W, N)
         Hcp = red[:18]
         red_p = red[18:].sum(dim=1)  # (12, N)
@@ -193,9 +202,10 @@ def local_bundle_adjust(prob: BAProblem, cam: CameraConfig,
         H_mat = [schur_operand(torch.stack([Hcp[i * 3 + c] for i in range(6)], 0)
                                .reshape(6 * W, N)) for c in range(3)]
         S_mat = -sum(A_mat[c] @ H_mat[c].T for c in range(3))  # (6W, 6W) iw order
-        Sblk = S_mat.reshape(6, W, 6, W)
-        Sblk[:, wi, :, wi] += Hcc
-        S_mat = Sblk.reshape(6 * W, 6 * W)
+        # Hcc onto the (w, w) blocks, through the diagonal view of the
+        # (6, W, 6, W) layout (an index assignment would check its
+        # indices on the host).
+        S_mat.view(6, W, 6, W).diagonal(dim1=1, dim2=3).add_(Hcc.permute(1, 2, 0))
         rhs = b_c.T - sum((A_mat[c] @ schur_operand(b_p[c])).reshape(6, W) for c in range(3))
         S_diag = torch.abs(torch.diagonal(S_mat))
         S_mat = S_mat + torch.diag(1e-3 * S_diag + fixed_diag + 1e-5)
@@ -211,21 +221,27 @@ def local_bundle_adjust(prob: BAProblem, cam: CameraConfig,
         return T_new, points + dx_p, cost_here
 
     def phase(T, pts, inlier, use_huber: bool, n_iters: int):
-        """Best-state tracking with gain-based early exit."""
+        """Best-state tracking with gain-based early exit: JAX's
+        `while_loop`, run for all `n_iters` steps with the carry frozen
+        once `done` is set, so the host never reads the gain test."""
         best_T, best_pts = T, pts
-        best_cost = torch.tensor(torch.finfo(f32).max, device=dev)
+        best_cost = torch.full((), torch.finfo(f32).max, dtype=f32, device=dev)
         prev_cost = best_cost
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        taken = torch.zeros((), dtype=torch.int32, device=dev)
         for _ in range(n_iters):
             T_new, pts_new, cost_here = gn_step(T, pts, inlier, use_huber)
-            better = cost_here < best_cost
+            live = ~done
+            taken = taken + live.to(torch.int32)
+            better = live & (cost_here < best_cost)
             best_T = torch.where(better, T, best_T)
             best_pts = torch.where(better, pts, best_pts)
             best_cost = torch.where(better, cost_here, best_cost)
-            done = bool(cost_here > (1.0 - cfg.local_ba_min_rel_decrease) * prev_cost)
-            T, pts, prev_cost = T_new, pts_new, cost_here
-            if done:
-                break
-        return T, pts, (best_T, best_pts, best_cost)
+            done = done | (cost_here > (1.0 - cfg.local_ba_min_rel_decrease) * prev_cost)
+            T = torch.where(live, T_new, T)
+            pts = torch.where(live, pts_new, pts)
+            prev_cost = torch.where(live, cost_here, prev_cost)
+        return T, pts, (best_T, best_pts, best_cost), taken
 
     def eval_state(T, pts, inlier, use_huber: bool):
         e, behind = _residuals(T, pts, prob, cam)
@@ -234,19 +250,22 @@ def local_bundle_adjust(prob: BAProblem, cam: CameraConfig,
         return cost, chi, behind
 
     def finish_phase(T_last, pts_last, best, inlier, use_huber: bool):
+        """The last state if it beats the best one seen, else the best:
+        both evaluated, then selected (JAX's `where` and `cond`)."""
         best_T, best_pts, best_cost = best
         cost_l, chi_l, behind_l = eval_state(T_last, pts_last, inlier, use_huber)
-        if bool(cost_l < best_cost):
-            return T_last, pts_last, chi_l, behind_l
-        _, chi, behind = eval_state(best_T, best_pts, inlier, use_huber)
-        return best_T, best_pts, chi, behind
+        _, chi_b, behind_b = eval_state(best_T, best_pts, inlier, use_huber)
+        use_last = cost_l < best_cost
+        return (torch.where(use_last, T_last, best_T), torch.where(use_last, pts_last, best_pts),
+                torch.where(use_last, chi_l, chi_b), torch.where(use_last, behind_l, behind_b))
 
     inlier = obs_valid.to(f32)
-    T_last, pts_last, best = phase(prob.T_cw, prob.points, inlier, True,
-                                   cfg.local_ba_iters_initial)
+    T_last, pts_last, best, taken_1 = phase(prob.T_cw, prob.points, inlier, True,
+                                            cfg.local_ba_iters_initial)
     T_cw, points, chi, behind = finish_phase(T_last, pts_last, best, inlier, True)
     inlier = (obs_valid & (chi < chi2_th) & (~behind)).to(f32)
-    T_last, pts_last, best = phase(T_cw, points, inlier, False, cfg.local_ba_iters_refine)
+    T_last, pts_last, best, taken_2 = phase(T_cw, points, inlier, False,
+                                            cfg.local_ba_iters_refine)
     T_cw, points, chi, behind = finish_phase(T_last, pts_last, best, inlier, False)
     final_inlier = obs_valid & (chi < chi2_th) & (~behind)
-    return BAResult(T_cw, points, final_inlier, chi)
+    return BAResult(T_cw, points, final_inlier, chi, torch.stack([taken_1, taken_2]))

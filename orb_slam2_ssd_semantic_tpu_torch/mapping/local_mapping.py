@@ -1,7 +1,13 @@
 """Local mapping: triangulation, duplicate fusion, covisibility-window BA,
 map-point maintenance and culling (counterpart of the JAX package's
 `mapping/local_mapping.py`). `local_mapping_step` runs once per keyframe
-from the third one on."""
+from the third one on.
+
+The step never waits on the card: every decision JAX takes with
+`lax.cond` or `while_loop` is a select on the device here (the
+keyframe cull, local BA's early exit), so the tracker can dispatch it
+and track on (`async_mapping`). The newest keyframe's slot stays a 0-d
+tensor and is read with `row`, a gather, never as a host index."""
 
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import (
 from orb_slam2_ssd_semantic_tpu_torch.mapping.triangulation import triangulate_pair
 from orb_slam2_ssd_semantic_tpu_torch.ops import match as match_ops
 from orb_slam2_ssd_semantic_tpu_torch.ops.match import popcount32
-from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import scatter, top_k
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import row, scatter, top_k
 
 
 def _full(ref: torch.Tensor, v):
@@ -58,10 +64,12 @@ def create_new_map_points(state: SlamState, cfg: SlamConfig) -> SlamState:
     neighbors, ok_nb = _neighbor_slots(state, kf1, cfg.map.triangulation_neighbors)
     Nn = neighbors.shape[0]
 
-    T1 = kfs.T_cw[kf1]
+    T1 = row(kfs.T_cw, kf1)
     c1 = se3.se3_inverse(T1)[:3, 3]
     baseline_min = cfg.camera.depth_bf / cfg.camera.fx
-    valid1 = kfs.kp_valid[kf1] & (kfs.kp_point[kf1] < 0)
+    kp_point1 = row(kfs.kp_point, kf1)
+    valid1 = row(kfs.kp_valid, kf1) & (kp_point1 < 0)
+    uv1, desc1, level1 = row(kfs.uv, kf1), row(kfs.desc, kf1), row(kfs.level, kf1)
 
     T2 = kfs.T_cw[neighbors]
     c2 = se3.se3_inverse(T2)[:, :3, 3]
@@ -73,7 +81,7 @@ def create_new_map_points(state: SlamState, cfg: SlamConfig) -> SlamState:
         return a[None].expand((Nn,) + a.shape)
 
     tri = triangulate_pair(
-        rep(kfs.uv[kf1]), rep(kfs.desc[kf1]), rep(kfs.level[kf1]), valid1[None] & ok_pair[:, None],
+        rep(uv1), rep(desc1), rep(level1), valid1[None] & ok_pair[:, None],
         kfs.uv[neighbors], kfs.desc[neighbors], kfs.level[neighbors], valid2 & ok_pair[:, None],
         rep(T1), T2, cfg.camera, cfg.orb,
     )
@@ -93,7 +101,7 @@ def create_new_map_points(state: SlamState, cfg: SlamConfig) -> SlamState:
     slot_safe = torch.where(ok, slot, _full(slot, P))
 
     dist = torch.linalg.norm(X - c1[None], dim=-1)
-    lv = kfs.level[kf1].clamp(0, cfg.orb.n_levels - 1)
+    lv = level1.clamp(0, cfg.orb.n_levels - 1)
     max_dist = dist * sf[lv]
     min_dist = max_dist / sf[-1]
     normal = (X - c1[None]) / torch.clamp(dist, min=1e-6)[:, None]
@@ -101,7 +109,7 @@ def create_new_map_points(state: SlamState, cfg: SlamConfig) -> SlamState:
     pts = state.points
     pts = pts.replace(
         pos=scatter(pts.pos, slot_safe, X),
-        desc=scatter(pts.desc, slot_safe, kfs.desc[kf1]),
+        desc=scatter(pts.desc, slot_safe, desc1),
         normal=scatter(pts.normal, slot_safe, normal),
         min_dist=scatter(pts.min_dist, slot_safe, min_dist),
         max_dist=scatter(pts.max_dist, slot_safe, max_dist),
@@ -109,10 +117,10 @@ def create_new_map_points(state: SlamState, cfg: SlamConfig) -> SlamState:
         n_visible=scatter(pts.n_visible, slot_safe, 2),
         n_found=scatter(pts.n_found, slot_safe, 2),
         ref_kf=scatter(pts.ref_kf, slot_safe, kf1),
-        first_kf_uid=scatter(pts.first_kf_uid, slot_safe, kfs.uid[kf1]),
+        first_kf_uid=scatter(pts.first_kf_uid, slot_safe, row(kfs.uid, kf1)),
         valid=scatter(pts.valid, slot_safe, True),
     )
-    kp1 = torch.where(ok, slot, kfs.kp_point[kf1])
+    kp1 = torch.where(ok, slot, kp_point1)
     kp = scatter(kfs.kp_point, kf1, kp1)
     kp = scatter(kp, (torch.where(ok, kf2_sel, _full(kf2_sel, F)), torch.where(ok, j2, _full(j2, 0))),
                  torch.where(ok, slot, _full(slot, -1)))
@@ -182,16 +190,17 @@ def _fuse_directions_batched(state: SlamState, src, dst, ok_d, cfg: SlamConfig) 
                & (dist > 0.8 * pts.min_dist[idc]) & (dist < 1.3 * pts.max_dist[idc])
                & (cos_view > 0.5))
     ratio = torch.clamp(pts.max_dist[idc] / torch.clamp(dist, min=1e-6), min=1e-6)
-    log_s = torch.log(torch.tensor(cfg.orb.scale_factor, dtype=torch.float32, device=dev))
+    log_s = torch.log(torch.full((), cfg.orb.scale_factor, dtype=torch.float32, device=dev))
     pred_level = torch.ceil(torch.log(ratio) / log_s).to(torch.int64)
     pred_level = pred_level.clamp(0, cfg.orb.n_levels - 1)
     radius = cfg.map.fuse_search_radius * sf[pred_level]
 
+    desc_t, uv_t, valid_t = kfs.desc[dst], kfs.uv[dst], kfs.kp_valid[dst]
     js = []
     for d in range(D):
         m = match_ops.match_by_window(
-            pts.desc[idc[d]], kfs.desc[dst[d]], uv[d], kfs.uv[dst[d]], q_valid[d],
-            kfs.kp_valid[dst[d]], radius[d], max_dist=match_ops.TH_LOW)
+            pts.desc[idc[d]], desc_t[d], uv[d], uv_t[d], q_valid[d], valid_t[d], radius[d],
+            max_dist=match_ops.TH_LOW)
         js.append((m.idx, m.valid))
     m_idx = torch.stack([a for a, _ in js])
     m_valid = torch.stack([b for _, b in js])
@@ -277,7 +286,7 @@ def fuse_pair(state: SlamState, kf_a, kf_b, cfg: SlamConfig) -> SlamState:
     which projects loop-side landmarks into the corrected current-side
     keyframes so the two sides of a closed loop share observations."""
     dev = state.kfs.valid.device
-    ab = torch.tensor([kf_a, kf_b], dtype=torch.int64, device=dev)
+    ab = torch.where(torch.arange(2, device=dev) == 0, kf_a, kf_b)
     state = _fuse_directions_batched(state, ab, ab.flip(0),
                                      torch.ones((2,), dtype=torch.bool, device=dev), cfg)
     return _dedup_observations(state, ab)
@@ -411,7 +420,7 @@ def assemble_local_ba(state: SlamState, cfg: SlamConfig):
 
     presentN = scatter(torch.zeros((P + 1,), dtype=torch.float32, device=dev),
                        torch.where(point_valid, local_ids, _full(local_ids, P)), 1.0)
-    presentN[P] = 0.0
+    presentN[P].zero_()
     obs_cnt_kf = torch.sum(
         presentN[torch.where(kfs.kp_point >= 0, kfs.kp_point, _full(kfs.kp_point, P))]
         * kfs.kp_valid, dim=1)
@@ -504,8 +513,10 @@ def _ba_and_maintain(state: SlamState, cfg: SlamConfig) -> SlamState:
 def cull_keyframes(state: SlamState, cfg: SlamConfig) -> SlamState:
     """Cull redundant covisible neighbours of the newest keyframe (>= 90%
     of their tracked points seen by >= 3 other keyframes), recording
-    their spanning-tree parent and releasing their slots. The retirement
-    bookkeeping runs only when something is culled (one host sync)."""
+    their spanning-tree parent and releasing their slots. The culled
+    state is computed whatever the cull, and taken only when something
+    is culled (JAX's `lax.cond`): an empty cull returns the state as it
+    was, bit for bit."""
     kfs = state.kfs
     pts0 = state.points
     P = pts0.pos.shape[0]
@@ -513,7 +524,7 @@ def cull_keyframes(state: SlamState, cfg: SlamConfig) -> SlamState:
     dev = kfs.valid.device
     last = state.last_kf
     uid = kfs.uid
-    last_uid = uid[last]
+    last_uid = row(uid, last)
     covrow = covisibility_row(kfs.kp_point, kfs.valid, last, P)
 
     ids = torch.where(kfs.kp_point >= 0, kfs.kp_point, _full(kfs.kp_point, P))
@@ -529,13 +540,12 @@ def cull_keyframes(state: SlamState, cfg: SlamConfig) -> SlamState:
     cull_rows = ((cov_sc > 0) & (ratio[cand_rows] > cfg.map.kf_redundancy_ratio)
                  & (n_tracked[cand_rows] > 10))
     cull = scatter(torch.zeros((F,), dtype=torch.bool, device=dev), cand_rows, cull_rows)
-    if not bool(torch.any(cull)):
-        return state
+    any_cull = torch.any(cull)
 
     surv_obs = torch.where((kfs.valid & ~cull)[:, None] & tracked, kfs.kp_point,
                            _full(kfs.kp_point, P)).reshape(-1)
     surv_ref = scatter(torch.full((P + 1,), -1, dtype=torch.int64, device=dev), surv_obs,
-                       torch.arange(F, device=dev).repeat_interleave(K), "amax")[:P]
+                       torch.arange(F, device=dev)[:, None].expand(F, K).reshape(-1), "amax")[:P]
     kp_rows = kfs.kp_point[cand_rows]
     pt_surv = surv_ref[kp_rows.clamp(0, P - 1)]
     vote_ok = cull_rows[:, None] & tracked[cand_rows] & (pt_surv >= 0)
@@ -551,14 +561,23 @@ def cull_keyframes(state: SlamState, cfg: SlamConfig) -> SlamState:
                           pts0.ref_kf)
     culled_ids = torch.where(cull[:, None] & tracked, kfs.kp_point, _full(kfs.kp_point, P))
     n_obs = torch.clamp(scatter(pts0.n_obs, culled_ids.reshape(-1), -1, "add"), min=0)
-    pts = pts0.replace(n_obs=n_obs, ref_kf=new_ref)
+    ring = state.retired
+    new_ring = push_retired(ring, cull, uid, uid[parent], T_rel)
+
+    def pick(new, old):
+        return torch.where(any_cull, new, old)
+
+    pts = pts0.replace(n_obs=pick(n_obs, pts0.n_obs), ref_kf=pick(new_ref, pts0.ref_kf))
     kfs = kfs.replace(
         valid=kfs.valid & ~cull,
         kp_point=torch.where(cull[:, None], _full(kfs.kp_point, -1), kfs.kp_point),
         parent_uid=torch.where(cull, uid[parent], kfs.parent_uid),
         T_rel_parent=torch.where(cull[:, None, None], T_rel, kfs.T_rel_parent),
     )
-    retired = push_retired(state.retired, cull, uid, uid[parent], T_rel)
+    retired = ring.replace(uid=pick(new_ring.uid, ring.uid),
+                           parent_uid=pick(new_ring.parent_uid, ring.parent_uid),
+                           T_rel=pick(new_ring.T_rel, ring.T_rel),
+                           count=pick(new_ring.count, ring.count))
     return state.replace(points=pts, kfs=kfs, retired=retired,
                          n_kfs=state.n_kfs - cull.sum().to(torch.int32))
 
@@ -567,7 +586,7 @@ def cull_points(state: SlamState, cfg: SlamConfig) -> SlamState:
     """Drop points with a poor found/visible ratio, young points that
     failed to gather observations, and points with none left."""
     pts = state.points
-    cur_uid = state.kfs.uid[state.last_kf]
+    cur_uid = row(state.kfs.uid, state.last_kf)
     age = cur_uid - pts.first_kf_uid
     visible = torch.clamp(pts.n_visible, min=1)
     ratio = pts.n_found.to(torch.float32) / visible.to(torch.float32)

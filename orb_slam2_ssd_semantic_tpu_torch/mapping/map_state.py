@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from orb_slam2_ssd_semantic_tpu_torch.config import SlamConfig
-from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import scatter, top_k
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import row, scatter, top_k
 
 
 def _replace(obj, **kw):
@@ -162,15 +162,16 @@ def covisibility(kp_point: torch.Tensor, kf_valid: torch.Tensor, point_capacity:
 
 
 def covisibility_row(kp_point: torch.Tensor, kf_valid: torch.Tensor, kf_id, point_capacity: int):
-    """(F,) int32 shared-point counts between keyframe `kf_id` and every
-    other keyframe."""
-    ids = kp_point[kf_id]
+    """(F,) int32 shared-point counts between keyframe `kf_id` (an int or a
+    0-d tensor, read on the device) and every other keyframe."""
+    ids = row(kp_point, kf_id) if isinstance(kf_id, torch.Tensor) else kp_point[kf_id]
     present = torch.zeros((point_capacity + 1,), dtype=torch.float32, device=kp_point.device)
     present = scatter(present, torch.where(ids >= 0, ids, torch.full_like(ids, point_capacity)), 1.0)
-    present[point_capacity] = 0.0
+    present[point_capacity].zero_()
     other = torch.where(kp_point >= 0, kp_point, torch.full_like(kp_point, point_capacity))
     shared = torch.sum(present[other], dim=1) * kf_valid.to(torch.float32)
-    shared[kf_id] = 0.0
+    shared = torch.where(torch.arange(kp_point.shape[0], device=kp_point.device) == kf_id, 0.0,
+                         shared)
     return shared.to(torch.int32)
 
 

@@ -26,8 +26,7 @@ class TriangulationResult:
 
 
 def _intrinsics(cam: CameraConfig, device) -> torch.Tensor:
-    return torch.tensor([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]],
-                        dtype=torch.float32, device=device)
+    return cam_ops.intrinsics_matrix(cam, device=device)
 
 
 def fundamental_from_poses(T1_cw, T2_cw, cam: CameraConfig):
@@ -36,7 +35,7 @@ def fundamental_from_poses(T1_cw, T2_cw, cam: CameraConfig):
     T12 = T1_cw @ se3.se3_inverse(T2_cw)
     T21 = se3.se3_inverse(T12)
     E = se3.hat(T21[..., :3, 3]) @ T21[..., :3, :3]
-    K_inv = torch.linalg.inv(K)
+    K_inv = torch.linalg.inv_ex(K)[0]  # `inv` without its host-side check
     return K_inv.T @ E @ K_inv
 
 

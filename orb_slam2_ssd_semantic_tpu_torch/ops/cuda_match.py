@@ -144,7 +144,7 @@ def prepare(desc_q, desc_t, centers, uv_t, radius, valid_q, valid_t, max_dist: i
     if isinstance(radius, torch.Tensor):
         radius = radius.to(device=dev, dtype=torch.float32)
     else:
-        radius = torch.tensor([radius], dtype=torch.float32, device=dev)
+        radius = torch.full((1,), radius, dtype=torch.float32, device=dev)
     # One radius for all queries is read through a stride of 0, one per
     # query through its own stride: no copy either way.
     scalar_radius = radius.numel() == 1

@@ -1,7 +1,7 @@
-"""Dense image ops on (H, W) float32 tensors: separable 1-D correlation,
-the pyramid resize, keypoint depth sampling, and the gradients, box
-filter, bilinear sampler and binary morphology of the dynamic masks
-(counterpart of the JAX package's `ops/image.py`)."""
+"""Dense image ops on (H, W) float32 tensors: separable 1-D correlation
+and the Gaussian pre-blur, the pyramid resize, keypoint depth sampling,
+and the gradients, box filter, bilinear sampler and binary morphology of
+the dynamic masks (counterpart of the JAX package's `ops/image.py`)."""
 
 from __future__ import annotations
 
@@ -19,6 +19,16 @@ def gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
     x = np.arange(ksize) - (ksize - 1) / 2.0
     k = np.exp(-(x**2) / (2.0 * sigma**2))
     return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
+    """Separable Gaussian blur of an (H, W) image with reflect padding (the
+    edge pixel not repeated), the pre-blur before BRIEF sampling
+    (ORBextractor.cc:1105): rows first, then columns."""
+    k = gaussian_kernel1d(ksize, sigma)
+    pad = ksize // 2
+    x = conv1d_axis(pad_reflect(img, pad, 0), k, axis=0)
+    return conv1d_axis(pad_reflect(x, 0, pad), k, axis=1)
 
 
 def conv1d_axis(x: torch.Tensor, k, axis: int) -> torch.Tensor:

@@ -117,12 +117,24 @@ def rotation_consistency_mask(angle_q, angle_t, m: MatchResult, histo_length: in
 def window_mask(centers, uv_t, radius, valid_q, valid_t) -> torch.Tensor:
     """(Q, T) mask: target inside the square window of half-size
     radius[q] (scalar or (Q,)) around each query centre."""
-    r = torch.as_tensor(radius, dtype=torch.float32, device=centers.device)
+    if isinstance(radius, torch.Tensor):
+        r = radius.to(device=centers.device, dtype=torch.float32)
+    else:
+        r = torch.full((), radius, dtype=torch.float32, device=centers.device)
     r = r.expand(centers.shape[0])
     du = torch.abs(uv_t[None, :, 0] - centers[:, None, 0])
     dv = torch.abs(uv_t[None, :, 1] - centers[:, None, 1])
     inside = (du <= r[:, None]) & (dv <= r[:, None])
     return inside & valid_q[:, None] & valid_t[None, :]
+
+
+def level_mask(level_q: torch.Tensor, level_t: torch.Tensor, min_delta: int,
+               max_delta: int) -> torch.Tensor:
+    """(Q, T) mask: target pyramid level within [lq + min_delta,
+    lq + max_delta] (the octave gate of projection searches,
+    ORBmatcher.cc:105-110)."""
+    d = level_t[None, :] - level_q[:, None]
+    return (d >= min_delta) & (d <= max_delta)
 
 
 def match_by_window(desc_q, desc_t, centers, uv_t, valid_q, valid_t, radius,

@@ -1,7 +1,13 @@
-"""ORB orientation (intensity centroid) and steered BRIEF-256 from
-per-keypoint patches (counterpart of the production path of the JAX
-package's `ops/orb_descriptor.py`: `extract_patches`,
-`ic_angle_from_patches`, `blur_patches`, `binned_brief`).
+"""ORB orientation (intensity centroid) and steered BRIEF-256 (counterpart
+of the JAX package's `ops/orb_descriptor.py`).
+
+`ic_angle` and `steered_brief` are ORB-SLAM2's definitions as gathers
+over the whole image: the exact intensity-centroid angle over the
+radius-15 disk, and BRIEF sampled at the pattern rotated by the
+keypoint's own angle and rounded. They are the references that the
+production path is held to: `extract_patches`, `ic_angle_from_patches`,
+`blur_patches` and `binned_brief` (the rotation quantized to 32 bins),
+which is what the extractor runs.
 
 The JAX version forms these as one-hot matmuls in bfloat16 (the MXU's
 fast path); here they are gathers, which give the same values as long
@@ -23,12 +29,22 @@ import numpy as np
 import torch
 
 from orb_slam2_ssd_semantic_tpu_torch.ops.image import conv1d_axis, gaussian_kernel1d
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import device_constant
 
 HALF_PATCH = 15
 N_BITS = 256
 N_ANGLE_BINS = 32
 _PATCH = 2 * HALF_PATCH + 1  # 31
 BLUR_PAD = 3  # 7x7 gaussian half-width
+
+
+@functools.lru_cache()
+def _circular_offsets(radius: int = HALF_PATCH) -> np.ndarray:
+    """(P, 2) integer (dy, dx) offsets of the circular patch (the disk the
+    reference's u_max table walks), in the JAX package's order."""
+    ys, xs = np.mgrid[-radius: radius + 1, -radius: radius + 1]
+    m = ys**2 + xs**2 <= radius**2
+    return np.stack([ys[m], xs[m]], axis=-1).astype(np.int64)
 
 
 @functools.lru_cache()
@@ -71,6 +87,51 @@ def _binned_sample_index(n_bins: int = N_ANGLE_BINS) -> np.ndarray:
     return out
 
 
+_offsets_table = device_constant(_circular_offsets)
+_pattern_table = device_constant(brief_pattern)
+_moment_table = device_constant(_moment_weights)
+_sample_index_table = device_constant(_binned_sample_index)
+
+
+def ic_angle(img: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid angle at the rounded keypoint coords.
+
+    img: (H, W) float32, uv: (N, 2) [x, y] (level-local pixels), valid:
+    (N,) bool. Returns (N,) float32 radians in [-pi, pi], 0 where not
+    valid. The disk is clamped at the image border."""
+    offs = _offsets_table(device=img.device)  # (P, 2) dy, dx
+    h, w = img.shape
+    x0 = torch.round(uv[:, 0]).to(torch.int64)
+    y0 = torch.round(uv[:, 1]).to(torch.int64)
+    ys = (y0[:, None] + offs[None, :, 0]).clamp(0, h - 1)  # (N, P)
+    xs = (x0[:, None] + offs[None, :, 1]).clamp(0, w - 1)
+    patch = img[ys, xs]
+    m01 = torch.sum(patch * offs[None, :, 0].to(img.dtype), dim=1)
+    m10 = torch.sum(patch * offs[None, :, 1].to(img.dtype), dim=1)
+    return torch.where(valid, torch.atan2(m01, m10), torch.zeros_like(m01))
+
+
+def steered_brief(img_blurred: torch.Tensor, uv: torch.Tensor, angle: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """Rotation-steered BRIEF-256 on a blurred (H, W) image: each sample
+    pair of the pattern rotated by the keypoint's angle, rounded
+    (cvRound, half to even here as in JAX) and clamped to the image.
+    uv (N, 2) [x, y], angle (N,) radians -> (N, 8) int32 words."""
+    pat = _pattern_table(device=img_blurred.device)  # (256, 4)
+    h, w = img_blurred.shape
+    ca = torch.cos(angle)[:, None]
+    sa = torch.sin(angle)[:, None]
+    x0 = torch.round(uv[:, 0]).to(torch.int64)[:, None]
+    y0 = torch.round(uv[:, 1]).to(torch.int64)[:, None]
+    vals = []
+    for k in (0, 1):
+        px, py = pat[None, :, 2 * k], pat[None, :, 2 * k + 1]
+        rx = torch.round(px * ca - py * sa).to(torch.int64)
+        ry = torch.round(px * sa + py * ca).to(torch.int64)
+        vals.append(img_blurred[(y0 + ry).clamp(0, h - 1), (x0 + rx).clamp(0, w - 1)])
+    return pack_bits(vals[0] < vals[1], valid)
+
+
 def extract_patches(img: torch.Tensor, uv: torch.Tensor, half: int = HALF_PATCH) -> torch.Tensor:
     """(2*half+1)^2 patches of the bf16-rounded image at rounded keypoint
     coords, clamped at the borders. img (H, W), uv (N, 2) -> (N, P, P)."""
@@ -86,7 +147,7 @@ def extract_patches(img: torch.Tensor, uv: torch.Tensor, half: int = HALF_PATCH)
 
 def ic_angle_from_patches(patches: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid angle from (N, 31, 31) raw patches."""
-    w = torch.as_tensor(_moment_weights(), device=patches.device)
+    w = _moment_table(device=patches.device)
     flat = patches.reshape(patches.shape[0], -1).to(torch.bfloat16).to(torch.float32)
     m = flat @ w  # (N, 2) [m10, m01]
     return torch.where(valid, torch.atan2(m[:, 1], m[:, 0]), torch.zeros_like(m[:, 0]))
@@ -119,7 +180,7 @@ def binned_brief(patches: torch.Tensor, angle: torch.Tensor, valid: torch.Tensor
     """Steered BRIEF-256 from (N, 31, 31) blurred patches with the
     rotation quantized to N_ANGLE_BINS bins -> (N, 8) int32."""
     n = patches.shape[0]
-    idx = torch.as_tensor(_binned_sample_index(), device=patches.device)  # (bins, 512)
+    idx = _sample_index_table(device=patches.device)  # (bins, 512)
     flat = patches.reshape(n, _PATCH * _PATCH).to(torch.bfloat16).to(torch.float32)
     sel = torch.gather(flat, 1, idx[quantize_angle(angle)])  # (N, 512)
     bits = sel[:, 0::2] < sel[:, 1::2]

@@ -5,17 +5,20 @@ keyframe insertion, and the host-side `Tracker` that sequences them, runs
 loop closing (`mapping/loop_closing.py`) and local mapping per keyframe
 and relocalizes a LOST frame (`tracking/reloc.py`).
 
-Each `lax.cond` of the JAX version is a Python branch on a fetched
+Each `lax.cond` of the tracking step is a Python branch on a fetched
 scalar here. Branch syncs per frame (CUDA graphs come later):
   - every tracked frame: 3 — the motion-model retry test (match count),
     the motion-model success test, and the packed per-frame stats;
   - a frame whose motion model fails: +1 (reference-keyframe path);
   - a keyframe: +2 in insertion (store-full test, reference count) and
-    +4 host mirrors, then in local mapping one per BA Gauss-Newton
-    iteration (early-exit test), 2 phase closes and 1 keyframe-cull test;
-    with loop closing on, its database fetch, and past the recency gate
-    the host copies of detection and, per candidate, of the transform
-    estimate and the correction (`chip_smoke.py` phase 7 counts them);
+    +5 host mirrors, all before local mapping is dispatched. Local
+    mapping itself never waits on the card (its `cond`s and its BA's
+    early exit are selects on the device), so with `async_mapping` the
+    frame goes on while it runs and the next frame's stats fetch is
+    where the host meets it, as in JAX; with loop closing on, its
+    database fetch, and past the recency gate the host copies of
+    detection and, per candidate, of the transform estimate and the
+    correction (`chip_smoke.py` phase 7 counts them);
   - a LOST frame (or WEAK, in localization-only mode): relocalization's
     candidate scores, and per candidate its RANSAC and refinement
     inlier counts.
@@ -23,11 +26,10 @@ scalar here. Branch syncs per frame (CUDA graphs come later):
     uploads two weight matrices from the host, and `eigh` and `inv`
     check their results), the geometry mask 1 (`chip_smoke.py` phase
     9c profiles a steady masked frame).
-Beyond these, every host scalar turned into a device tensor
-(`torch.tensor(x, device=...)`, `scatter` with a Python value) is a
-blocking copy, and `scatter`'s compaction of in-range indices waits for
-the device: `chip_smoke.py` counts all stream synchronisations of a
-steady frame on the card.
+Beyond these, a tracking step still turns some host scalars into device
+tensors with a blocking copy: `chip_smoke.py` counts all stream
+synchronisations of a steady frame and of a keyframe frame on the card,
+and those inside the `local_mapping` range (phase 5b: none).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from orb_slam2_ssd_semantic_tpu_torch import device as device_mod
 from orb_slam2_ssd_semantic_tpu_torch.config import SlamConfig
@@ -469,7 +472,13 @@ class Tracker:
         self._lost_streak = 0
 
     def _to_device(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+        """A host image on the tracker's device. The card's copy goes from
+        pinned memory without waiting, so a frame's upload does not wait
+        for the previous keyframe's local mapping to finish."""
+        t = torch.as_tensor(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     @precision.scoped
     def process(self, gray: np.ndarray, depth: np.ndarray, stamp: float,
@@ -562,18 +571,22 @@ class Tracker:
                     self.metrics.count("loops_closed")
                     T_cw = self.state.kfs.T_cw[kf_slot]
                     T_np = T_cw.cpu().numpy()
-            mirror_state = self.state  # post-insert, pre-BA
-            if self._n_kfs + 1 >= 3:
+            # The host mirrors read the post-insert, pre-BA state, before
+            # local mapping is dispatched: with `async_mapping` nothing
+            # after the dispatch waits on the card until the next frame's
+            # stats fetch.
+            n_kfs_before = self._n_kfs
+            self._on_keyframe_inserted()
+            if n_kfs_before + 1 >= 3:
                 from orb_slam2_ssd_semantic_tpu_torch.mapping.local_mapping import (
                     local_mapping_step,
                 )
 
-                with self.metrics.stage("local_mapping"):
+                with self.metrics.stage("local_mapping"), record_function("local_mapping"):
                     self.state = local_mapping_step(self.state, cfg)
                     if not cfg.tracking.async_mapping:
                         T_cw = self.state.kfs.T_cw[kf_slot]
                         T_np = T_cw.cpu().numpy()
-            self._on_keyframe_inserted(mirror_state)
         else:
             self.frames_since_kf += 1
             # Relocalize when LOST and, in localization-only mode, also
@@ -609,9 +622,9 @@ class Tracker:
         self._record(frame, T_cw, T_np, kp_point, velocity, stamp, n_matches, n_inl)
         return T_np
 
-    def _on_keyframe_inserted(self, state=None):
-        """Refresh the host mirrors (from the post-insert, pre-BA state)."""
-        state = self.state if state is None else state
+    def _on_keyframe_inserted(self):
+        """Refresh the host mirrors from the state (post-insert, pre-BA)."""
+        state = self.state
         self._n_kfs = int(state.n_kfs)
         self._n_points = int(state.n_points)
         self._last_kf = int(state.last_kf)

@@ -8,7 +8,22 @@
   outside the array are dropped (torch raises on them), and the input is
   never modified (JAX arrays are immutable; callers keep pre-update
   snapshots of the map state). Duplicate `set` indices resolve
-  arbitrarily on the card, as they do under XLA; the CPU writes in order.
+  arbitrarily on the card, as they do under XLA, except under
+  deterministic algorithms, where the last one wins; the CPU writes in
+  order. Nothing in it waits on the card: dropped indices are sent to a
+  spare row (a mask compaction would read the count on the host), and
+  the write skips PyTorch's host-side range check (`index_add_`-style
+  `put`, below).
+- `put`: `index_put_` (or `index_add_` with `accumulate`) on indices the
+  caller keeps in range, without the check that reads their extremes on
+  the host. On the card, every `index_add_` and every deterministic
+  `index_put_` makes that check, a stream sync.
+- `row`: `t[i]` for a 0-d index tensor, as a gather: indexing with a 0-d
+  tensor reads it on the host (`item`).
+- `device_constant`: a table computed on the host (scale factors, an
+  intrinsics matrix, a sampling pattern), uploaded once per device
+  without a pageable copy and shared: a `torch.tensor(..., device=cuda)`
+  on every call is a copy the host waits for.
 - `nanmedian`: `jnp.nanmedian` — for an even count of numbers it
   averages the two middle ones, where `torch.nanmedian` returns the lower.
 - `finite_matrices`: XLA's decompositions return NaN for a matrix holding
@@ -25,6 +40,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -36,39 +53,79 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def put(t: torch.Tensor, idx: torch.Tensor, val: torch.Tensor, accumulate: bool = False):
+    """`t.index_put_((idx,), val, accumulate)` in place on the leading dim,
+    indices in range (the caller's guarantee: nothing checks them)."""
+    return torch._index_put_impl_(t, (idx,), val, accumulate=accumulate, unsafe=True)
+
+
 def scatter(t: torch.Tensor, idx, val, op: str = "set") -> torch.Tensor:
     """Functional scatter into the leading `len(idx)` dims of `t`.
 
     idx: one index tensor or a tuple of them (broadcast together);
-    val: broadcastable to idx.shape + t.shape[len(idx):];
+    val: a tensor or a Python scalar, broadcastable to
+    idx.shape + t.shape[len(idx):];
     op: "set", "add", "amin" or "amax" (the last two for 1-D scalar
-    entries). Out-of-range indices are dropped."""
+    entries). Out-of-range indices are dropped: they write to a spare
+    row past the end, which the result leaves out."""
     if not isinstance(idx, tuple):
         idx = (idx,)
     idx = torch.broadcast_tensors(*idx)
     n_lead = len(idx)
     lead = t.shape[:n_lead]
     trail = t.shape[n_lead:]
-    ok = torch.ones(idx[0].shape, dtype=torch.bool, device=t.device)
-    lin = torch.zeros(idx[0].shape, dtype=torch.int64, device=t.device)
+    n = 1
+    ok = None
+    lin = None
     for d, i in zip(lead, idx):
-        ok &= (i >= 0) & (i < d)
-        lin = lin * d + i.to(torch.int64)
-    val = torch.as_tensor(val, dtype=t.dtype, device=t.device)
-    val = val.expand(idx[0].shape + trail)
-    lin = lin[ok]
-    v = val[ok]
-    out = t.clone()
-    flat = out.view(-1, *trail)
-    if op == "set":
-        flat[lin] = v
-    elif op == "add":
-        flat.index_put_((lin,), v, accumulate=True)
+        in_range = (i >= 0) & (i < d)
+        ok = in_range if ok is None else ok & in_range
+        lin = i.to(torch.int64) if lin is None else lin * d + i
+        n *= d
+    lin = torch.where(ok, lin, n).reshape(-1)
+    if isinstance(val, torch.Tensor):
+        val = val.to(device=t.device, dtype=t.dtype)
+    else:
+        val = torch.full((), val, dtype=t.dtype, device=t.device)
+    val = val.expand(idx[0].shape + trail).reshape((-1,) + trail)
+    flat = torch.cat([t.reshape((n,) + trail), t.new_zeros((1,) + trail)])
+    if op in ("set", "add"):
+        put(flat, lin, val, accumulate=op == "add")
     elif op in ("amin", "amax"):
-        flat.scatter_reduce_(0, lin, v, reduce=op, include_self=True)
+        flat.scatter_reduce_(0, lin, val, reduce=op, include_self=True)
     else:
         raise ValueError(op)
-    return out
+    return flat[:n].view(t.shape)
+
+
+def row(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """t[i] for a 0-d int64 tensor `i`, read on the device."""
+    return t.index_select(0, i.reshape(1))[0]
+
+
+def device_constant(fn):
+    """Decorator for a function of hashable arguments that returns a host
+    table (a numpy array or a CPU tensor): the wrapped function takes a `device=` keyword
+    as well and returns the table as a tensor there, built once per
+    (arguments, device) and uploaded from pinned memory without waiting.
+    Every caller shares the tensor: never write into it."""
+
+    @functools.lru_cache(maxsize=None)
+    def cached(args, device):
+        host = fn(*args)
+        host = torch.from_numpy(np.array(host)) if isinstance(host, np.ndarray) else host.clone()
+        if device.type == "cuda":
+            return host.pin_memory().to(device, non_blocking=True)
+        return host.to(device)
+
+    @functools.wraps(fn)
+    def wrapped(*args, device=None):
+        device = torch.device("cpu" if device is None else device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return cached(args, device)
+
+    return wrapped
 
 
 def f32_reciprocal(v: float) -> float:

@@ -15,8 +15,17 @@ same map to the port. Tolerances, and why:
   15 Gauss-Newton iterations of f32 Schur-complement sums in another
   order (segment sums on one side, index_add on the other) and an LU
   solve on one side against Gauss-Jordan on the other.
+
+The port's local-mapping step never waits on the card (the tracker
+dispatches it and tracks on). On the CPU that is held by running it with
+every host read trapped: a tensor's truth value, `item`, `int`, `float`,
+`tolist`, `cpu`, `numpy`, `nonzero`, indexing by a boolean mask or by a
+0-d tensor (both read on the host), and `torch.tensor`/`as_tensor` of
+host data or a host number assigned to one element (on the card, a
+pageable copy the host waits for) all raise.
 """
 
+import contextlib
 import dataclasses
 
 import jax.numpy as jnp
@@ -36,6 +45,7 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping import local_mapping as tlm
 from orb_slam2_ssd_semantic_tpu_torch.mapping import triangulation as ttri
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import state_from_numpy, state_to_numpy
 from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import scatter
 from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
@@ -136,12 +146,14 @@ def test_local_bundle_adjust_matches_jax(jax_map):
     assert agree.mean() >= 0.99, agree.mean()
 
 
-def test_local_mapping_step_matches_jax(jax_map):
-    cfg, jstate, tree = jax_map
-    out_j = tree_of(jlm.local_mapping_step(jstate, cfg))
-    tcfg = small_config(tconfig)
-    with highest_precision():
-        out_t = state_to_numpy(tlm.local_mapping_step(state_from_numpy(tree, CPU), tcfg))
+@pytest.fixture(scope="module")
+def jax_step(jax_map):
+    """JAX's local-mapping step on the fixture's map, as numpy."""
+    cfg, jstate, _ = jax_map
+    return tree_of(jlm.local_mapping_step(jstate, cfg))
+
+
+def _check_step(out_j, out_t, tree):
     kj, kt = out_j["kfs"], out_t["kfs"]
     np.testing.assert_array_equal(kj["valid"], kt["valid"])
     live = kj["valid"]
@@ -155,3 +167,219 @@ def test_local_mapping_step_matches_jax(jax_map):
     bound = kj["kp_point"][live] >= 0
     assert bound.sum() > 100
     assert (kj["kp_point"][live] == kt["kp_point"][live]).mean() >= 0.99
+
+
+def test_local_mapping_step_matches_jax(jax_map, jax_step):
+    cfg, jstate, tree = jax_map
+    tcfg = small_config(tconfig)
+    with highest_precision():
+        out_t = state_to_numpy(tlm.local_mapping_step(state_from_numpy(tree, CPU), tcfg))
+    _check_step(jax_step, out_t, tree)
+
+
+class HostRead(AssertionError):
+    pass
+
+
+@contextlib.contextmanager
+def host_reads_trapped():
+    """Inside, every way of reading a tensor on the host, or of making one
+    from host data, raises `HostRead`."""
+    T = torch.Tensor
+    saved = []
+
+    def patch(owner, name, fn):
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, fn)
+
+    def refuse(name):
+        def call(*args, **kwargs):
+            raise HostRead(name)
+        return call
+
+    def host_index(idx):
+        for i in idx if isinstance(idx, tuple) else (idx,):
+            if isinstance(i, T) and (i.dtype == torch.bool or i.dim() == 0):
+                return True
+        return False
+
+    get, set_, tensor, as_tensor = T.__getitem__, T.__setitem__, torch.tensor, torch.as_tensor
+
+    def getitem(self, idx):
+        if host_index(idx):
+            raise HostRead("index by a mask or a 0-d tensor")
+        return get(self, idx)
+
+    def setitem(self, idx, value):
+        if host_index(idx):
+            raise HostRead("index assignment by a mask or a 0-d tensor")
+        if not isinstance(value, T) and get(self, idx).dim() == 0:
+            raise HostRead("a host number assigned to one element (copied over)")
+        return set_(self, idx, value)
+
+    def from_host(make, name):
+        def call(data, *args, **kwargs):
+            if not isinstance(data, T):
+                raise HostRead(f"{name} of host data")
+            return make(data, *args, **kwargs)
+        return call
+
+    for name in ("__bool__", "item", "__int__", "__float__", "__index__", "tolist", "cpu",
+                 "numpy", "nonzero"):
+        patch(T, name, refuse(name))
+    patch(T, "__getitem__", getitem)
+    patch(T, "__setitem__", setitem)
+    patch(torch, "nonzero", refuse("torch.nonzero"))
+    patch(torch, "tensor", from_host(tensor, "torch.tensor"))
+    patch(torch, "as_tensor", from_host(as_tensor, "torch.as_tensor"))
+    try:
+        yield
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def test_host_read_trap_fires():
+    x = torch.arange(4)
+    for read in (lambda: bool(x[0] > 1), lambda: x.sum().item(), lambda: int(x[1]),
+                 lambda: x.cpu(), lambda: x[x > 1], lambda: x[torch.tensor(1)],
+                 lambda: torch.tensor([1.0]), lambda: torch.as_tensor(2.0), lambda: x.tolist(),
+                 lambda: x.__setitem__(0, 5)):
+        with host_reads_trapped(), pytest.raises(HostRead):
+            read()
+    with host_reads_trapped():
+        y = torch.as_tensor(x)[x[:2]]
+    assert y.tolist() == [0, 1]
+
+
+def test_local_mapping_step_waits_on_nothing(jax_map, jax_step):
+    """The whole step, with every host read trapped, still matches JAX at
+    `test_local_mapping_step_matches_jax`'s tolerances."""
+    cfg, jstate, tree = jax_map
+    tcfg = small_config(tconfig)
+    state = state_from_numpy(tree, CPU)
+    with highest_precision(), host_reads_trapped():
+        out = tlm.local_mapping_step(state, tcfg)
+    _check_step(jax_step, state_to_numpy(out), tree)
+
+
+def test_local_bundle_adjust_early_exit_matches_jax(jax_map):
+    """BA rerun on its own output: the gain test stops phase 1 early, and
+    the frozen fixed-length loop lands where JAX's `while_loop` does."""
+    cfg, jstate, _ = jax_map
+    prob_j = jlm.assemble_local_ba(jstate, cfg)[0]
+    first = jba.local_bundle_adjust(prob_j, cfg.camera, cfg.optimizer)
+    prob_j = prob_j._replace(T_cw=first.T_cw, points=first.points)
+    res_j = jba.local_bundle_adjust(prob_j, cfg.camera, cfg.optimizer)
+    fields = {k: np.asarray(v) for k, v in prob_j._asdict().items()}
+    fields["point_slot"] = fields["point_slot"].astype(np.int64)
+    prob_t = tba.BAProblem(**{k: torch.from_numpy(v) for k, v in fields.items()})
+    tcfg = small_config(tconfig)
+    with highest_precision(), host_reads_trapped():
+        res_t = tba.local_bundle_adjust(prob_t, tcfg.camera, tcfg.optimizer)
+    steps = res_t.iters.tolist()
+    assert steps[0] < tcfg.optimizer.local_ba_iters_initial, steps
+    np.testing.assert_allclose(np.asarray(res_j.T_cw), res_t.T_cw.numpy(), atol=1e-4, rtol=0)
+    pv = fields["point_valid"]
+    np.testing.assert_allclose(np.asarray(res_j.points)[pv], res_t.points.numpy()[pv],
+                               atol=1e-3, rtol=0)
+
+
+def _cull_config(mod, ratio):
+    cfg = small_config(mod)
+    return cfg.replace(map=dataclasses.replace(cfg.map, kf_redundancy_ratio=ratio,
+                                               min_observations=0))
+
+
+def test_cull_keyframes_empty_is_the_identity(jax_map):
+    """With nothing to cull (a ratio no keyframe can pass) every field
+    comes back bit for bit."""
+    _, _, tree = jax_map
+    state = state_from_numpy(tree, CPU)
+    with host_reads_trapped():
+        out = tlm.cull_keyframes(state, _cull_config(tconfig, 1.0))
+    before, after = state_to_numpy(state), state_to_numpy(out)
+
+    def check(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                check(a[k], b[k], f"{path}.{k}")
+        else:
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), path
+
+    check(before, after, "state")
+
+
+def test_cull_keyframes_matches_jax(jax_map):
+    """A ratio of 0 makes every candidate redundant: the same keyframes
+    culled, parents, retired records and map-point bookkeeping as JAX."""
+    _, jstate, tree = jax_map
+    out_j = tree_of(jlm.cull_keyframes(jstate, _cull_config(jconfig, 0.0)))
+    state = state_from_numpy(tree, CPU)
+    with host_reads_trapped():
+        out_t = tlm.cull_keyframes(state, _cull_config(tconfig, 0.0))
+    out_t = state_to_numpy(out_t)
+    assert int(out_j["n_kfs"]) < int(tree["n_kfs"]), "nothing culled: vacuous"
+    for group, names in (("kfs", ("valid", "kp_point", "parent_uid")),
+                         ("points", ("n_obs", "ref_kf")),
+                         ("retired", ("uid", "parent_uid", "count"))):
+        for name in names:
+            np.testing.assert_array_equal(out_j[group][name], out_t[group][name],
+                                          err_msg=f"{group}.{name}")
+    np.testing.assert_allclose(out_j["kfs"]["T_rel_parent"], out_t["kfs"]["T_rel_parent"],
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(out_j["retired"]["T_rel"], out_t["retired"]["T_rel"],
+                               atol=1e-6, rtol=0)
+    assert int(out_j["n_kfs"]) == int(out_t["n_kfs"])
+
+
+def _scatter_with_compaction(t, idx, val, op="set"):
+    """`utils/tensor_ops.scatter` as it was: in-range entries picked by a
+    boolean mask, the value made with `as_tensor`."""
+    if not isinstance(idx, tuple):
+        idx = (idx,)
+    idx = torch.broadcast_tensors(*idx)
+    n_lead = len(idx)
+    lead, trail = t.shape[:n_lead], t.shape[n_lead:]
+    ok = torch.ones(idx[0].shape, dtype=torch.bool)
+    lin = torch.zeros(idx[0].shape, dtype=torch.int64)
+    for d, i in zip(lead, idx):
+        ok &= (i >= 0) & (i < d)
+        lin = lin * d + i.to(torch.int64)
+    val = torch.as_tensor(val, dtype=t.dtype).expand(idx[0].shape + trail)
+    lin, v = lin[ok], val[ok]
+    out = t.clone()
+    flat = out.view(-1, *trail)
+    if op == "set":
+        flat[lin] = v
+    elif op == "add":
+        flat.index_put_((lin,), v, accumulate=True)
+    else:
+        flat.scatter_reduce_(0, lin, v, reduce=op, include_self=True)
+    return out
+
+
+@pytest.mark.parametrize("op", ["set", "add", "amin", "amax"])
+def test_scatter_without_compaction_matches_the_old_one(op):
+    """Duplicate, negative and out-of-range indices, one and two index
+    tensors, tensor and Python values, under deterministic algorithms."""
+    g = torch.Generator().manual_seed(0)
+    with highest_precision():
+        for trial in range(40):
+            dtype = (torch.float32, torch.int32, torch.int64, torch.bool)[trial % (4 if op == "set" else 3)]
+            n = 1 + trial % 13
+            trail = (3,) if op in ("set", "add") and trial % 2 else ()
+            t = (torch.randn((n,) + trail, generator=g) * 10).to(dtype)
+            idx = torch.randint(-4, n + 4, (3 * n,), generator=g)
+            val = (torch.randn((3 * n,) + trail, generator=g) * 10).to(dtype) if trial % 5 else 1
+            a, b = _scatter_with_compaction(t, idx, val, op), scatter(t, idx, val, op)
+            assert a.dtype == b.dtype and torch.equal(a, b), (op, dtype, trial)
+            if op in ("set", "add"):
+                t2 = (torch.randn((n, 4) + trail, generator=g) * 10).to(dtype)
+                i0 = torch.randint(-2, n + 2, (n, 1), generator=g)
+                i1 = torch.randint(-2, 6, (1, 3), generator=g)
+                a = _scatter_with_compaction(t2, (i0, i1), val if trial % 5 == 0 else
+                                             t2[:1, :1].expand((n, 3) + trail), op)
+                b = scatter(t2, (i0, i1), val if trial % 5 == 0 else
+                            t2[:1, :1].expand((n, 3) + trail), op)
+                assert torch.equal(a, b), (op, dtype, trial, "two index tensors")

@@ -9,8 +9,12 @@ takes only a (kf, pt) device mesh and runs each other part on the CPU when
 asked (the dense map, the stereo and monocular front ends, map and
 occupancy persistence); the dynamic masks (the Tracker's `dynamic.enable_*`, the
 scan's and the segmented runner's `use_flow` and `use_geom`), loop
-closing and relocalization, together or alone, are accepted."""
+closing and relocalization, together or alone, are accepted. The port has
+every public name of the JAX package at the same path, or a counterpart
+named in `RENAMED`."""
 
+import ast
+import importlib
 import os
 import pathlib
 import re
@@ -26,6 +30,7 @@ from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "orb_slam2_ssd_semantic_tpu_torch"
+JAX_PKG = ROOT / "orb_slam2_ssd_semantic_tpu"
 NO_LOOP = LoopConfig(enabled=False, enable_relocalization=False)
 
 
@@ -400,3 +405,62 @@ def test_launch_signatures_match_the_cuda_sources():
         want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
         assert all(p.startswith(("int ", "const void*", "void*")) for p in params), params
         assert argtypes == want, (name, params)
+
+
+# Names of the JAX package that the port renamed or replaced, by (module,
+# name), with the counterpart that stands in for each: (module, name).
+RENAMED = {
+    ("ops.image", "resize_bilinear"): ("ops.image", "resize_linear"),
+    ("parallel.mesh", "kf_sharding"): ("parallel.mesh", "shard_rows"),
+    ("parallel.mesh", "pt_sharding"): ("parallel.mesh", "shard_rows"),
+    ("parallel.mesh", "replicated"): ("parallel.mesh", "replicate"),
+    # The Pallas kernels' modules became the CUDA kernels' wrappers; their
+    # `use_pallas` switch is each wrapper's dispatch on its tensors' device.
+    ("ops.pallas_match", "fused_window_match"): ("ops.cuda_match", "window_match"),
+    ("ops.pallas_match", "BIG"): ("ops.cuda_match", "BIG"),
+    ("ops.pallas_match", "use_pallas"): ("ops.cuda_match", "window_match"),
+    ("ops.pallas_solve", "spd_solve"): ("ops.cuda_solve", "spd_solve"),
+    ("ops.pallas_solve", "PAD"): ("ops.cuda_solve", "PAD"),
+    ("ops.pallas_solve", "use_pallas"): ("ops.cuda_solve", "spd_solve"),
+}
+
+
+def _public_names(path: pathlib.Path) -> list:
+    """Public top-level functions, classes and assigned names of a module,
+    read with `ast` (the JAX package is never imported here)."""
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for target in node.targets if isinstance(node, ast.Assign) else [node.target]:
+                names += [n.id for n in ast.walk(target) if isinstance(n, ast.Name)]
+    return [n for n in names if not n.startswith("_")]
+
+
+def test_port_has_every_public_name_of_the_jax_package():
+    """Every public top-level function, class and constant of every module
+    of the JAX package exists under the same name at the same path in the
+    port, or is in RENAMED and its counterpart exists; every entry of
+    RENAMED names something the JAX package has and the port lacks."""
+    missing, used = [], set()
+    for path in sorted(JAX_PKG.rglob("*.py")):
+        parts = path.relative_to(JAX_PKG).with_suffix("").parts
+        mod = ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+        port_name = f"{PKG.name}.{mod}" if mod else PKG.name
+        try:
+            port = importlib.import_module(port_name)
+        except ModuleNotFoundError:
+            port = None
+        for name in _public_names(path):
+            if port is not None and hasattr(port, name):
+                continue
+            if (mod, name) not in RENAMED:
+                missing.append(f"{mod}.{name}")
+                continue
+            used.add((mod, name))
+            other_mod, other = RENAMED[(mod, name)]
+            counterpart = importlib.import_module(f"{PKG.name}.{other_mod}")
+            assert hasattr(counterpart, other), (mod, name, other_mod, other)
+    assert not missing, missing
+    assert used == set(RENAMED), set(RENAMED) - used
