@@ -7,21 +7,31 @@ under `--tree` (default: this file's directory):
 
 - the frames: host ms a frame (ending in a synchronize), the keyframe
   frames, the `local_mapping` stage's host ms (what the frame loop waits
-  for: with `async_mapping` the dispatch), and for a steady frame and a
-  keyframe frame the CUDA runtime calls (kernel launches, copies, stream
-  syncs) of the whole frame and inside `local_mapping`;
+  for: with `async_mapping` the dispatch) and, on a tree that replays
+  local mapping from a CUDA graph (`mapping/graphed_step.py`), the
+  `local_mapping.capture` stage's; for a steady frame and the first
+  keyframe frame that maps (62: on a graph tree, the capture's) the CUDA
+  runtime calls (kernel launches, graph launches, copies, stream syncs)
+  of the whole frame and inside `local_mapping`;
 - local BA's Gauss-Newton steps: per adjustment, the steps each phase
   took before its gain test stopped it (counted as calls of the
   residual pass, which a step makes once, when the tree's BA leaves the
-  loop early; from `BAResult.iters` when it runs a fixed loop);
-- `local_mapping_step` called directly on the state the last keyframe
-  met, at the default 16 + 8 window and at chip_smoke's 12 + 8: the
-  dispatch's host ms against the same call ending in a synchronize
-  (median of 3), the runtime calls inside it, the window matcher's and
-  the SPD solve's launches, and every sync PyTorch reports in it
-  (`torch.cuda.set_sync_debug_mode("warn")`), by file and line.
+  loop early; from `BAResult.iters` when it runs a fixed loop); on a
+  tree with the graph, only the warm-up's and the capture's adjustments
+  run in Python, so only they are counted;
+- local mapping called directly on the state the last keyframe met, at
+  the default 16 + 8 window and at chip_smoke's 12 + 8, as the tree's
+  tracker calls it (`local_mapping_step`, or a `LocalMappingRunner`
+  captured first): the dispatch's host ms against the same call ending
+  in a synchronize (median of 3), the runtime calls inside it, how many
+  times the window matcher's and the SPD solve's kernels ran on the card
+  in a traced call (a replay included), and every sync PyTorch reports
+  in it (`torch.cuda.set_sync_debug_mode("warn")`), by file and line.
 
-    python3 async_mapping_probe.py [--tree DIR]
+With `--poses FILE` it saves the poses `process` returned (numpy, N x 4 x
+4), so two trees' runs can be compared.
+
+    python3 async_mapping_probe.py [--tree DIR] [--poses FILE]
 
 Run it on another commit's tree by unpacking that tree into a directory
 and naming it with `--tree`. Needs one CUDA card. Prints one JSON object
@@ -45,8 +55,8 @@ N_FRAMES = 96
 STEADY_FRAME = 40
 KEYFRAME_FRAME = 62
 ROOM, SEED = (5.0, 3.0, 6.0), 17
-RUNTIME_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemcpy",
-                 "cudaStreamSynchronize", "cudaDeviceSynchronize")
+RUNTIME_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemcpy", "cudaStreamSynchronize", "cudaDeviceSynchronize")
 SYNC_CALLS = ("cudaMemcpy", "cudaStreamSynchronize", "cudaDeviceSynchronize")
 REPEATS = 3
 
@@ -71,9 +81,23 @@ def _runtime(prof, in_range: str | None = None) -> dict:
     return out
 
 
+def _kernels_run(prof) -> dict:
+    """How many times the window matcher's first kernel and the SPD
+    solve's kernel ran on the card in a profile, from its device events
+    (a graph's replay, which calls no wrapper, included)."""
+    out = dict(window_match=0, spd_solve=0)
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            for key, name in (("window_match", "window_match_partial_kernel"),
+                              ("spd_solve", "spd_solve_kernel")):
+                out[key] += name in e.name
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent))
+    ap.add_argument("--poses", default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import numpy as np
@@ -85,9 +109,14 @@ def main() -> int:
     from orb_slam2_ssd_semantic_tpu_torch.io import device_render
     from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import orbit_trajectory
     from orb_slam2_ssd_semantic_tpu_torch.mapping import ba, local_mapping
-    from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build, cuda_match, cuda_solve
+    from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build
     from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
     from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
+
+    try:
+        from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import LocalMappingRunner
+    except ImportError:
+        LocalMappingRunner = None
 
     if not torch.cuda.is_available():
         print("async_mapping_probe: no CUDA device", file=sys.stderr)
@@ -133,17 +162,26 @@ def main() -> int:
 
     ba._residual_components = counted_residuals
     local_mapping.local_bundle_adjust = counted_ba
-    local_mapping.local_mapping_step = hooked_step
+    if LocalMappingRunner is None:
+        local_mapping.local_mapping_step = hooked_step
+    else:
+        replay_fn = LocalMappingRunner.step
+
+        def hooked_replay(runner, state, c):
+            met.append(state)
+            return replay_fn(runner, state, c)
+
+        LocalMappingRunner.step = hooked_replay
 
     tracker = Tracker(cfg, device=dev)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    frame_ms, profiles = [], {}
+    frame_ms, profiles, returned = [], {}, []
     for i, (gray, depth) in enumerate(frames):
         prof = profile(activities=acts) if i in (STEADY_FRAME, KEYFRAME_FRAME) else None
         if prof is not None:
             prof.start()
         t = time.perf_counter()
-        tracker.process(gray, depth, float(i) / 30.0)
+        returned.append(tracker.process(gray, depth, float(i) / 30.0))
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t) * 1e3)
         if prof is not None:
@@ -151,7 +189,10 @@ def main() -> int:
             profiles[i] = dict(frame=_runtime(prof), local_mapping=_runtime(prof, "local_mapping"))
     kf_frames = [i for i in range(1, len(tracker.stats))
                  if tracker.stats[i]["kfs"] != tracker.stats[i - 1]["kfs"]]
+    if args.poses:
+        np.save(args.poses, np.stack(returned))
     lm = tracker.metrics.stages.get("local_mapping")
+    cap = tracker.metrics.stages.get("local_mapping.capture")
     plain = [ms for i, ms in enumerate(frame_ms[1:], 1)
              if i not in kf_frames and i not in profiles]
     iters = [t.tolist() for t in fixed_loop]
@@ -160,23 +201,29 @@ def main() -> int:
         keyframe_frame_ms=[frame_ms[i] for i in kf_frames if i not in profiles],
         local_mapping_steps=0 if lm is None else lm.count,
         local_mapping_stage_ms=None if lm is None else lm.mean_s * 1e3,
+        local_mapping_capture_ms=None if cap is None else cap.total_s * 1e3,
         profiled={str(k): v for k, v in profiles.items()},
         gn_steps_per_phase=iters if iters else None, residual_passes_per_ba=steps,
         gn_schedule=[cfg.optimizer.local_ba_iters_initial, cfg.optimizer.local_ba_iters_refine]))
 
     # Direct calls on the state the last keyframe met.
     local_mapping.local_mapping_step = step_fn
+    if LocalMappingRunner is not None:
+        LocalMappingRunner.step = replay_fn
     state = met[-1]
     cfg5 = cfg.replace(map=dataclasses.replace(cfg.map, local_ba_window=12,
                                                local_ba_fixed_anchors=8))
     for label, c in (("default_16_8", cfg), ("window_12_8", cfg5)):
+        runner = None if LocalMappingRunner is None else LocalMappingRunner(dev)
+
         def call():
             with highest_precision(), record_function("local_mapping"):
+                if runner is not None:
+                    return runner.step(state, c)
                 return local_mapping.local_mapping_step(state, c)
 
         call()
         torch.cuda.synchronize()
-        cuda_match.window_match.launches = cuda_solve.spd_solve.launches = 0
         steps.clear()
         fixed_loop.clear()
         dispatch, synced = [], []
@@ -190,8 +237,6 @@ def main() -> int:
             call()
             torch.cuda.synchronize()
             synced.append((time.perf_counter() - t) * 1e3)
-        launches = dict(window_match=cuda_match.window_match.launches // (2 * REPEATS),
-                        spd_solve=cuda_solve.spd_solve.launches // (2 * REPEATS))
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             call()
@@ -212,7 +257,7 @@ def main() -> int:
         _emit(label, dict(
             card=card, dispatch_ms=statistics.median(dispatch), synced_ms=statistics.median(synced),
             dispatch_over_synced=statistics.median(dispatch) / statistics.median(synced),
-            runtime_calls=_runtime(prof, "local_mapping"), launches=launches,
+            runtime_calls=_runtime(prof, "local_mapping"), launches=_kernels_run(prof),
             sync_sites=dict(sorted(sites.items(), key=lambda kv: -kv[1])),
             n_syncs_reported=sum(sites.values()),
             residual_passes_per_ba=steps[:1],

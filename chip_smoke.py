@@ -29,23 +29,40 @@ phase 14 phase 10's views and phase 7's map.
   4. the main path: `Tracker.process` on a rendered synthetic RGB-D
      sequence at 640x480 with the default config (loop closing and
      relocalization off), long enough for local mapping to run; checks
-     ATE, tracking status, map size, and that B1 launched; from each
-     local-mapping dispatch until `process` returns, CUDA's sync debug
-     mode is "error" (`async_mapping`: the frame must not wait on local
-     mapping); a steady window and a keyframe frame with local mapping
-     are profiled (syncs, copies and launches a frame, and inside the
-     `local_mapping` range);
+     ATE, tracking status, map size, and that B1 launched; local mapping
+     runs twice, replayed from one CUDA graph the tracker captured once
+     (`mapping/graphed_step.py`; stage `local_mapping.capture`); from each
+     replay until `process` returns, CUDA's sync debug mode is "error"
+     (`async_mapping`: the frame must not wait on local mapping); a
+     steady window and a keyframe frame that replays the graph are
+     profiled (syncs, copies and launches a frame, and inside the
+     `local_mapping` range: a `cudaGraphLaunch` and no sync); in the
+     keyframe frame's trace, B1's two kernels and B2's ran on the card as
+     many times as the frame's own wrapper calls and the graph's captured
+     launches (`cuda_build.captured`) add up to;
   5. local mapping at a 12 + 8 keyframe window (6 * 20 = 120 unknowns, the
      size at which local BA routes its reduced camera system to B2) on the
      phase-4 map; checks that B2 launched and that the refined poses agree
-     with the same step forced through B2's plain version; 5b: the step at
-     the default 16 + 8 window and at 12 + 8 under sync debug mode
-     "error", no stream sync or synchronous copy in its profiled range,
-     its dispatch's host ms against the same call ending in a
-     synchronize, and B1's and B2's launches in it; 5c: `ic_angle`,
+     with the same step forced through B2's plain version; 5b: the step's
+     graph at the default 16 + 8 window and at 12 + 8 (a runner each):
+     its output equal to the eager step's on every tensor, bit for bit,
+     and to a second replay; a returned state unchanged by a replay on
+     another state and sharing no memory with the graph's outputs; B1's
+     kernels in a traced replay at both windows and B2's at 12 + 8 only,
+     as many as the capture recorded and the eager step launched, and no
+     wrapper called by a replay; every replay under sync debug mode
+     "error" and no stream sync or synchronous copy in a profiled one;
+     the dispatch under half
+     the same call ending in a synchronize (the JAX package's gate);
+     the capture's host ms and pool size logged; 5c: `ic_angle`,
      `gaussian_blur` and `steered_brief` (ORB-SLAM2's orientation and
      descriptor, the references of the extractor's fast path) on phase
-     4's first view, card against CPU;
+     4's first view, card against CPU; 5d: `tests/test_map_hygiene.py`'s
+     async-mapping test on the card (phase 4's first 14 frames, a keyframe
+     at least every third frame, a synchronous and then an asynchronous
+     `Tracker`): both ATEs under 0.02 m, at least two asynchronous
+     local-mapping calls, and the asynchronous `local_mapping` stage
+     under half the synchronous one;
   6. relocalization: `Tracker.process` with
      `LoopConfig(enabled=False, enable_relocalization=True)` on phase 4's
      frames, with a NAMED vocabulary (a DBoW2 tree of the trained file's
@@ -362,7 +379,7 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.global_ba import (
     global_ba_step_state_sharded,
     problem_from_state,
 )
-from orb_slam2_ssd_semantic_tpu_torch.mapping import local_mapping as local_mapping_mod
+from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import LocalMappingRunner, state_leaves
 from orb_slam2_ssd_semantic_tpu_torch.mapping.local_mapping import (
     fuse_map_points,
     local_mapping_step,
@@ -439,9 +456,9 @@ N_FRAMES = 96
 # Steady frames (no keyframe) traced with torch.profiler for the device
 # breakdown; they are left out of the per-frame timing statistics.
 PROFILE_FRAMES = range(40, 45)
-# The keyframe frame profiled on its own: the third keyframe, where local
-# mapping first runs.
-PROFILE_KEYFRAME = 62
+# The keyframe frame profiled on its own: the fourth keyframe, where local
+# mapping runs the second time, a replay of the graph the third captured.
+PROFILE_KEYFRAME = 93
 # B1: the main path's three shapes first; then a T of six splits (384), Q and
 # T that fill no tile (300, 200: a last split of 8 targets), a T under one
 # split (40), a T whose splits are two staged chunks long (4096), a wide one.
@@ -477,7 +494,11 @@ POSE_MIN_MOVE = 4 * POSE_ATOL
 # drawn on phase 4's first view (seeded), at least DESC_MARGIN px inside;
 # angles card against CPU within DESC_ANGLE_TOL rad, the blur within
 # DESC_BLUR_TOL gray levels, descriptors equal.
-ASYNC_REPEATS = 2
+ASYNC_REPEATS = 5
+# Phase 5d: `tests/test_map_hygiene.py:334-366`'s run (14 frames of the
+# default orbit at 640x480, `max_frames_between_kfs=2`, loop closing and
+# relocalization off) and its ATE gate.
+GATE_FRAMES, GATE_KF_GAP, GATE_ATE = 14, 2, 0.02
 DESC_POINTS, DESC_MARGIN = 1024, 20
 DESC_ANGLE_TOL, DESC_BLUR_TOL = 1e-5, 1e-4
 # Phase 6: frames tracked with relocalization on before the checks (the
@@ -759,11 +780,48 @@ def _bound_ms(n_bytes: float, n_ops: float):
 def _reset_counts() -> None:
     cuda_match.window_match.launches = 0
     cuda_solve.spd_solve.launches = 0
+    cuda_build.captured.clear()
 
 
 def _counts() -> dict:
     return {"window_match": cuda_match.window_match.launches,
             "spd_solve": cuda_solve.spd_solve.launches}
+
+
+def _captured_counts() -> dict:
+    """The wrappers' launches into a CUDA graph being captured since the
+    last `_reset_counts`."""
+    return {k: cuda_build.captured.get(k, 0) for k in ("window_match", "spd_solve")}
+
+
+# B1's and B2's kernels by the names the card's trace gives them; a call of
+# B1's wrapper launches the first two.
+_TRACED_KERNELS = {"window_match": "window_match_partial_kernel",
+                   "window_match_merge": "window_match_merge_kernel",
+                   "spd_solve": "spd_solve_kernel"}
+
+
+def _traced_launches(prof) -> dict:
+    """How many times B1's two kernels and B2's ran on the card in a
+    profile, counted from its device events (a graph's replay included,
+    which calls no wrapper)."""
+    out = dict.fromkeys(_TRACED_KERNELS, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            for key, name in _TRACED_KERNELS.items():
+                if name in e.name():
+                    out[key] += 1
+    return out
+
+
+def _check_traced(label: str, traced: dict, want: dict) -> None:
+    """Raise unless the trace ran B1's two kernels `want["window_match"]`
+    times each and B2's `want["spd_solve"]` times."""
+    expected = dict(window_match=want["window_match"], window_match_merge=want["window_match"],
+                    spd_solve=want["spd_solve"])
+    if traced != expected:
+        raise AssertionError(f"{label}: the card ran {traced} of B1's and B2's kernels, "
+                             f"{expected} expected")
 
 
 # ---- phase 1 ---------------------------------------------------------------
@@ -1231,14 +1289,17 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
     prof_kf = torch.profiler.profile(activities=activities) if card else None
     frame_ms, poses = [], []
 
-    def step_no_wait(state, c):
-        # From the dispatch on, any wait on the card raises, until the
-        # frame's `process` returns (async_mapping).
+    def step_no_wait(runner, state, c):
+        # From the dispatch (the graph's replay; its capture, which
+        # synchronizes, comes before in a stage of its own) on, any wait on
+        # the card raises, until the frame's `process` returns
+        # (async_mapping).
         torch.cuda.set_sync_debug_mode("error")
-        return local_mapping_step(state, c)
+        return replay(runner, state, c)
 
+    replay = LocalMappingRunner.step
     if card:
-        local_mapping_mod.local_mapping_step = step_no_wait
+        LocalMappingRunner.step = step_no_wait
     _reset_counts()
     try:
         for i, (gray, depth) in enumerate(frames):
@@ -1246,6 +1307,7 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
                 prof.start()
             if card and i == PROFILE_KEYFRAME:
                 prof_kf.start()
+                kf_before = _counts()
             t = time.perf_counter()
             try:
                 poses.append(tracker.process(gray, depth, float(seq.stamps[i])))
@@ -1259,25 +1321,33 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
                 prof.stop()
             if card and i == PROFILE_KEYFRAME:
                 prof_kf.stop()
+                kf_python = {k: n - kf_before[k] for k, n in _counts().items()}
     finally:
-        local_mapping_mod.local_mapping_step = local_mapping_step
+        LocalMappingRunner.step = replay
     counts = _counts()
+    captured = _captured_counts()
     ate = evaluate_ate_xyz(tracker.camera_positions(), seq.gt_positions()).rmse
     statuses = [s["status"] for s in tracker.stats[1:]]
     ok_frac = statuses.count("OK") / len(statuses)
     n_points = int(tracker.state.n_points)
     lm_stage = tracker.metrics.stages.get("local_mapping")
     n_lm = lm_stage.count if lm_stage is not None else 0
+    cap_stage = tracker.metrics.stages.get("local_mapping.capture")
+    n_capture = cap_stage.count if cap_stage is not None else 0
     kf_frames = [i for i in range(1, len(tracker.stats))
                  if tracker.stats[i]["kfs"] != tracker.stats[i - 1]["kfs"]]
     res = dict(frames=n_frames, ate_m=ate, ok_frac=ok_frac, n_points=n_points,
                n_kfs=int(tracker.state.n_kfs), keyframe_frames=kf_frames,
-               local_mapping_steps=n_lm, launches=counts,
+               local_mapping_steps=n_lm, local_mapping_captures=n_capture, launches=counts,
+               launches_captured=captured,
                median_frame_ms=statistics.median(frame_ms[1:]),
                mean_frame_ms=statistics.mean(frame_ms[1:]), timed_frames=len(frame_ms) - 1,
                b1_launches_per_frame=counts["window_match"] / (n_frames - 1))
     _log("main path: " + json.dumps(res))
     _log("main path stages (Tracker.metrics, host clock):\n" + tracker.metrics.report())
+    if card:
+        res["capture"] = _capture_stats(tracker.local_mapper(), cfg)
+        _log("main path local-mapping graph: " + json.dumps(res["capture"]))
     if len(profiled):
         breakdown = _device_breakdown(prof, len(profiled), res["median_frame_ms"])
         res["profile"] = breakdown
@@ -1286,26 +1356,36 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
                                        max_name_column_width=50))
     if card:
         kf = dict(frame=PROFILE_KEYFRAME, runtime_calls=_runtime_in(prof_kf),
-                  local_mapping=_runtime_in(prof_kf, "local_mapping"))
+                  local_mapping=_runtime_in(prof_kf, "local_mapping"),
+                  launches_python=kf_python, traced=_traced_launches(prof_kf))
         res["keyframe_profile"] = kf
         steady = breakdown["runtime_calls_per_frame"]
         _log(f"syncs (cudaStreamSynchronize) a steady frame {steady.get('cudaStreamSynchronize', 0)}"
              f", keyframe frame {PROFILE_KEYFRAME} {kf['runtime_calls'].get('cudaStreamSynchronize', 0)}"
              f", inside its local_mapping range {kf['local_mapping']}: " + json.dumps(kf))
-        if not kf["local_mapping"].get("cudaLaunchKernel"):
-            raise AssertionError(f"frame {PROFILE_KEYFRAME} ran no local mapping: {kf}")
+        if not kf["local_mapping"].get("cudaGraphLaunch"):
+            raise AssertionError(f"frame {PROFILE_KEYFRAME} replayed no local-mapping graph: "
+                                 f"{kf}")
         waits = {k: v for k, v in kf["local_mapping"].items() if k in _SYNC_CALLS}
         if waits:
             raise AssertionError(f"local mapping waited on the card at frame {PROFILE_KEYFRAME}: "
                                  f"{waits}")
+        replays = kf["runtime_calls"]["cudaGraphLaunch"]
+        _check_traced(f"frame {PROFILE_KEYFRAME}", kf["traced"],
+                      {k: kf_python[k] + replays * captured[k] for k in captured})
+        if captured["window_match"] == 0:
+            raise AssertionError(f"the main path's local-mapping graph holds no B1 launch: "
+                                 f"{captured}")
     if not ate < 0.01:
         raise AssertionError(f"main path ATE {ate:.5f} m >= 0.01 m")
     if not ok_frac >= 0.9:
         raise AssertionError(f"main path OK fraction {ok_frac:.3f} < 0.9")
     if not n_points >= 900:
         raise AssertionError(f"main path map has {n_points} points < 900")
-    if n_lm < 1:
-        raise AssertionError("local mapping never ran on the main path")
+    if n_lm < 2:
+        raise AssertionError(f"local mapping ran {n_lm} times on the main path, not twice")
+    if n_capture != 1:
+        raise AssertionError(f"the main path captured local mapping {n_capture} times, not once")
     if dev.type == "cuda" and counts["window_match"] == 0:
         raise AssertionError("the main path never launched the window matcher")
     return res | {"tracker": tracker, "rendered": rendered, "poses": np.stack(poses),
@@ -1360,7 +1440,8 @@ def _runtime_in(prof, range_name: str | None = None) -> dict:
     them, or those made while a host range named `range_name` was open.
     Read from the raw trace events: building the profiler's event tree
     takes seconds for a local-mapping step's ~20,000 launches."""
-    names = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync") + _SYNC_CALLS
+    names = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync",
+             "cudaGraphLaunch") + _SYNC_CALLS
     events = prof.profiler.kineto_results.events()
     spans = [(e.start_ns(), e.end_ns()) for e in events
              if e.name() == range_name and e.device_type() == torch.autograd.DeviceType.CPU]
@@ -1374,45 +1455,103 @@ def _runtime_in(prof, range_name: str | None = None) -> dict:
     return out
 
 
-def check_async_mapping(tracker, dev) -> dict:
-    """Phase 5b: `local_mapping_step` on phase 4's map at the default
-    16 + 8 window (its solve `torch.linalg.solve_ex`) and at 12 + 8 (B2),
-    with CUDA's sync debug mode "error" (any wait on the card raises),
-    then under the profiler (no stream sync or synchronous copy inside
-    its range), and timed: the dispatch's host ms (what the tracker waits
-    with `async_mapping`) against the same call ending in a synchronize
-    (JAX's `test_map_hygiene.py` gate compares the two; here a record,
-    not a gate). The runs must repeat each other bit for bit."""
-    card = dev.type == "cuda"
-    sync = torch.cuda.synchronize if card else (lambda: None)
+def _capture_stats(runner, cfg) -> dict:
+    """A runner's capture for `cfg`: host ms (warm-up, capture,
+    instantiation and the first replay's dispatch) and MiB its graph's
+    private pool reserved."""
+    st = runner.stats(cfg)
+    return dict(capture_ms=st["capture_ms"], pool_mib=st["pool_bytes"] / 2**20)
+
+
+def _device_kernels(prof, ranges: tuple = (), top: int = 8) -> dict:
+    """Kernels on the device in a profile, from the raw trace events: how
+    many, their summed ms, and the `top` names by ms. The device-side spans
+    of the host ranges named in `ranges` are left out."""
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.name() not in ranges:
+            k = by.setdefault(e.name(), [0, 0])
+            k[0] += 1
+            k[1] += e.end_ns() - e.start_ns()
+    ranked = sorted(by.items(), key=lambda kv: -kv[1][1])[:top]
+    return dict(kernels=sum(v[0] for v in by.values()),
+                busy_ms=sum(v[1] for v in by.values()) / 1e6,
+                top=[dict(name=n[:80], count=c, ms=ns / 1e6) for n, (c, ns) in ranked])
+
+
+def _differing_leaves(a, b) -> list:
+    """The tensors of two SlamStates that are not equal bit for bit."""
+    return [path for (path, x), (_, y) in zip(state_leaves(a), state_leaves(b), strict=True)
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
+def check_async_mapping(tracker, dev, card: str) -> dict:
+    """Phase 5b: local mapping on phase 4's map at the default 16 + 8
+    window (its solve `torch.linalg.solve_ex`) and at 12 + 8 (B2), each
+    through a `LocalMappingRunner` of its own. Gates: the graph's output
+    equal bit for bit, on every tensor of the state, to the eager
+    `local_mapping_step` and to a second replay; a state the runner
+    returned unchanged after a replay on another state, and sharing no
+    memory with the graph's outputs; in a traced replay B1's two kernels
+    at both windows and B2's at 12 + 8 only, each as many times as the
+    capture recorded launches of it and the eager step made, and no
+    wrapper called; every replay under CUDA's sync debug mode "error" and
+    a profiled one with a `cudaGraphLaunch` and no stream sync or
+    synchronous copy in its range; the dispatch
+    (copy in, replay, clones: what the tracker waits for with
+    `async_mapping`) under half the same call ending in a synchronize, the
+    gate of `tests/test_map_hygiene.py:334-366`. Logs the capture's host
+    ms and its pool's size."""
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
     cfg = tracker.cfg
     state = tracker.state
     cfg5 = cfg.replace(map=dataclasses.replace(cfg.map, local_ba_window=12,
                                                local_ba_fixed_anchors=8))
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if card:
+    if on_card:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     t0 = time.perf_counter()
     res = {}
     for label, c in (("window_16_8", cfg), ("window_12_8", cfg5)):
+        runner = LocalMappingRunner(dev)
+
         def call():
-            with highest_precision(), record_function("local_mapping"):
-                return local_mapping_step(state, c)
+            if on_card:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                with record_function("local_mapping"):
+                    return runner.step(state, c)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode(0)
 
         sync()
         _reset_counts()
-        if card:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            first = call()
-        finally:
-            if card:
-                torch.cuda.set_sync_debug_mode(0)
-        counts = _counts()
+        with highest_precision():
+            eager = local_mapping_step(state, c)
+        eager_counts = _counts()
         sync()
+        _reset_counts()
+        runner.capture(state, c)
+        captured = _captured_counts()
+        sync()
+        # The capture's own replay mapped `state`: this call replays nothing.
+        first = call()
+        kept = [t.clone() for _, t in state_leaves(first)]
+        sync()
+        _reset_counts()
         with torch.profiler.profile(activities=activities) as prof:
             again = call()
             sync()
+        replay_counts = _counts()
+        # A replay on another state must leave the states returned so far
+        # as they were.
+        after = runner.step(first, c)
+        sync()
+        graph_out = next(iter(runner._captured.values())).out_state
+        graph_mem = (set() if graph_out is None else
+                     {t.untyped_storage().data_ptr() for _, t in state_leaves(graph_out)})
         dispatch, synced = [], []
         for _ in range(ASYNC_REPEATS):
             sync()
@@ -1424,26 +1563,119 @@ def check_async_mapping(tracker, dev) -> dict:
             call()
             sync()
             synced.append((time.perf_counter() - t) * 1e3)
-        repeats = all(torch.equal(getattr(first.kfs, f), getattr(again.kfs, f))
-                      for f in ("T_cw", "kp_point", "valid")) and torch.equal(
-            first.points.pos, again.points.pos)
-        r = dict(launches=counts, runtime_calls=_runtime_in(prof, "local_mapping"),
+        r = dict(launches_eager=eager_counts, launches_captured=captured,
+                 launches_python_in_replay=replay_counts,
+                 traced_replay=_traced_launches(prof) if on_card else None,
+                 runtime_calls=_runtime_in(prof, "local_mapping"),
+                 replay_kernels=_device_kernels(prof, ("local_mapping",)) if on_card else None,
                  dispatch_ms=statistics.median(dispatch), synced_ms=statistics.median(synced),
-                 repeats_bit_for_bit=repeats)
+                 dispatch_all_ms=dispatch, synced_all_ms=synced,
+                 capture=_capture_stats(runner, c) if on_card else None,
+                 differs_from_eager=_differing_leaves(first, eager),
+                 differs_between_replays=_differing_leaves(first, again),
+                 changed_by_later_replay=[
+                     path for (path, t), k in zip(state_leaves(first), kept, strict=True)
+                     if not torch.equal(t, k)],
+                 sharing_graph_memory=[path for path, t in state_leaves(first)
+                                       if t.untyped_storage().data_ptr() in graph_mem],
+                 later_replay_differs_in=len(_differing_leaves(after, first)))
         r["dispatch_over_synced"] = r["dispatch_ms"] / r["synced_ms"]
         res[label] = r
-        _log(f"5b local_mapping_step at {label}: " + json.dumps(r))
+        _log(f"5b local mapping at {label} (graph): " + json.dumps(r) + f"; card: {card}")
+        if r["differs_from_eager"]:
+            raise AssertionError(f"local mapping's graph at {label} differs from the eager step "
+                                 f"in {r['differs_from_eager']}")
+        if r["differs_between_replays"]:
+            raise AssertionError(f"local mapping's graph at {label} did not repeat itself in "
+                                 f"{r['differs_between_replays']}")
+        if r["changed_by_later_replay"] or r["sharing_graph_memory"]:
+            raise AssertionError(f"a state returned at {label} changed with a later replay in "
+                                 f"{r['changed_by_later_replay']} or shares the graph's memory in "
+                                 f"{r['sharing_graph_memory']}")
+        if not r["later_replay_differs_in"]:
+            raise AssertionError(f"the step on its own output at {label} changed nothing: the "
+                                 "aliasing check would be vacuous")
+        if not on_card:
+            continue
         waits = {k: v for k, v in r["runtime_calls"].items() if k in _SYNC_CALLS}
-        if card and waits:
-            raise AssertionError(f"local_mapping_step at {label} waited on the card: {waits}")
-        if card and counts["window_match"] == 0:
-            raise AssertionError(f"local_mapping_step at {label} never launched B1")
-        if card and (counts["spd_solve"] > 0) != (label == "window_12_8"):
-            raise AssertionError(f"local_mapping_step at {label}: B2 launches {counts}")
-        if not repeats:
-            raise AssertionError(f"local_mapping_step at {label} did not repeat itself")
+        if waits:
+            raise AssertionError(f"local mapping's replay at {label} waited on the card: {waits}")
+        if not r["runtime_calls"].get("cudaGraphLaunch"):
+            raise AssertionError(f"local mapping at {label} launched no graph: "
+                                 f"{r['runtime_calls']}")
+        if captured != eager_counts:
+            raise AssertionError(f"the capture at {label} recorded {captured} launches, the eager "
+                                 f"step made {eager_counts}")
+        if any(replay_counts.values()):
+            raise AssertionError(f"a replay at {label} called the wrappers: {replay_counts}")
+        _check_traced(f"local mapping's replay at {label}", r["traced_replay"], captured)
+        if captured["window_match"] == 0:
+            raise AssertionError(f"local mapping's graph at {label} holds no B1 launch")
+        if (captured["spd_solve"] > 0) != (label == "window_12_8"):
+            raise AssertionError(f"local mapping's graph at {label}: B2 launches {captured}")
+        if not r["dispatch_ms"] < 0.5 * r["synced_ms"]:
+            raise AssertionError(f"local mapping at {label}: dispatch {r['dispatch_ms']:.3f} ms is "
+                                 f"not under half of {r['synced_ms']:.3f} ms synchronized")
     res["phase_s"] = time.perf_counter() - t0
     _log(f"phase 5b took {res['phase_s']:.1f} s")
+    return res
+
+
+def check_async_gate(dev, rendered, card: str) -> dict:
+    """Phase 5d: `tests/test_map_hygiene.py:334-366` on the card: its
+    sequence (the orbit's first GATE_FRAMES frames at 640x480, phase 4's
+    frames), its config (a keyframe at least every GATE_KF_GAP + 1
+    frames, loop closing and relocalization off), a synchronous and then
+    an asynchronous `Tracker`; its gates: both ATEs under GATE_ATE, at
+    least two asynchronous local-mapping calls, and the asynchronous
+    `local_mapping` stage's mean under half the synchronous one's (each
+    over the calls after its run's capture, which is the stage
+    `local_mapping.capture`)."""
+    seq, frames, *_ = rendered
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    base = SlamConfig()
+    t0 = time.perf_counter()
+    res = {}
+    for name, async_on in (("sync", False), ("async", True)):
+        cfg = base.replace(
+            tracking=dataclasses.replace(base.tracking, max_frames_between_kfs=GATE_KF_GAP,
+                                         async_mapping=async_on),
+            loop=dataclasses.replace(base.loop, enabled=False, enable_relocalization=False))
+        tracker = Tracker(cfg, device=dev)
+        t = time.perf_counter()
+        for i in range(GATE_FRAMES):
+            gray, depth = frames[i]
+            tracker.process(gray, depth, float(seq.stamps[i]))
+        sync()
+        stages = tracker.metrics.stages
+        lm, cap = stages.get("local_mapping"), stages.get("local_mapping.capture")
+        res[name] = dict(
+            ate_m=evaluate_ate_xyz(tracker.camera_positions(),
+                                   seq.gt_positions()[:GATE_FRAMES]).rmse,
+            local_mapping_calls=lm.count if lm else 0,
+            local_mapping_mean_ms=lm.mean_s * 1e3 if lm else None,
+            local_mapping_max_ms=lm.max_s * 1e3 if lm else None,
+            captures=cap.count if cap else 0, capture_ms=cap.total_s * 1e3 if cap else None,
+            run_s=time.perf_counter() - t)
+    sy, asy = res["sync"], res["async"]
+    if sy["local_mapping_calls"] and asy["local_mapping_calls"]:
+        res["async_over_sync"] = asy["local_mapping_mean_ms"] / sy["local_mapping_mean_ms"]
+    res["phase_s"] = time.perf_counter() - t0
+    _log(f"5d the async-mapping gate of tests/test_map_hygiene.py: " + json.dumps(res)
+         + f"; card: {card}")
+    if not (sy["ate_m"] < GATE_ATE and asy["ate_m"] < GATE_ATE):
+        raise AssertionError(f"5d ATE sync {sy['ate_m']:.5f} / async {asy['ate_m']:.5f} m, not "
+                             f"both under {GATE_ATE} m")
+    if asy["local_mapping_calls"] < 2:
+        raise AssertionError(f"5d ran asynchronous local mapping {asy['local_mapping_calls']} "
+                             "times, under 2")
+    if sy["captures"] != 1 or asy["captures"] != 1:
+        raise AssertionError(f"5d captured local mapping {sy['captures']} / {asy['captures']} "
+                             "times, not once a run")
+    if dev.type == "cuda" and not res["async_over_sync"] < 0.5:
+        raise AssertionError(f"5d asynchronous local_mapping stage {asy['local_mapping_mean_ms']:.3f}"
+                             f" ms is not under half the synchronous "
+                             f"{sy['local_mapping_mean_ms']:.3f} ms")
     return res
 
 
@@ -4428,7 +4660,8 @@ def main() -> int:
     main_res = run_main_path(dev, rendered=rendered)
     tracker = main_res.pop("tracker")
     b2_path = run_b2_path(tracker, dev)
-    async_mapping = check_async_mapping(tracker, dev)
+    async_mapping = check_async_mapping(tracker, dev, card)
+    async_gate = check_async_gate(dev, main_res["rendered"], card)
     rendered = main_res.pop("rendered")
     descriptors = check_descriptor_references(dev, rendered)
     reloc = run_reloc_path(dev, rendered, card)
@@ -4462,6 +4695,9 @@ def main() -> int:
              launches_apps=launches_apps["window_match"],
              launches_live=live["launches"]["window_match"],
              launches_mesh=mesh["launches"]["window_match"], init_shape=b1["init_shape"],
+             launches_captured=main_res["launches_captured"]["window_match"],
+             launches_traced_keyframe_frame=main_res["keyframe_profile"]["traced"]["window_match"],
+             launches_traced_replay=async_mapping["window_16_8"]["traced_replay"]["window_match"],
              path="Tracker.process, default config"),
         dict(name="spd_solve", route="cuda",
              source="orb_slam2_ssd_semantic_tpu_torch/csrc/spd_solve.cu",
@@ -4480,6 +4716,7 @@ def main() -> int:
              launches_apps=launches_apps["spd_solve"],
              launches_live=live["launches"]["spd_solve"],
              launches_mesh=mesh["launches"]["spd_solve"],
+             launches_traced_replay=async_mapping["window_12_8"]["traced_replay"]["spd_solve"],
              path="local_mapping_step, window 12 + 8"),
     ]
     _log(f"summary: build {build_s:.2f} s, main path median {main_res['median_frame_ms']:.2f} "
@@ -4522,11 +4759,18 @@ def main() -> int:
          f"{mesh['global_ba']['global_ba_ms']:.1f}), at {MESH_TWO_RANK_GBA_ITERS} iterations "
          f"{mesh['global_ba']['sharded_ms_at_two_rank_iters']:.1f} ms at one rank and "
          f"{mesh['two_ranks']['gba_ms']:.1f} ms at two ranks over gloo; phase 14 {mesh['phase_s']:.1f} s; "
-         f"local_mapping_step at 16 + 8: dispatch "
-         f"{async_mapping['window_16_8']['dispatch_ms']:.2f} ms against "
-         f"{async_mapping['window_16_8']['synced_ms']:.2f} ms synchronized, B1 "
-         f"{async_mapping['window_16_8']['launches']['window_match']} launches, at 12 + 8 B2 "
-         f"{async_mapping['window_12_8']['launches']['spd_solve']}; syncs a steady frame "
+         f"local mapping's graph at 16 + 8: dispatch "
+         f"{async_mapping['window_16_8']['dispatch_ms']:.3f} ms against "
+         f"{async_mapping['window_16_8']['synced_ms']:.3f} ms synchronized (at 12 + 8 "
+         f"{async_mapping['window_12_8']['dispatch_ms']:.3f} against "
+         f"{async_mapping['window_12_8']['synced_ms']:.3f}), capture "
+         f"{async_mapping['window_16_8']['capture']['capture_ms']:.1f} ms and "
+         f"{async_mapping['window_16_8']['capture']['pool_mib']:.1f} MiB, B1's kernels "
+         f"{async_mapping['window_16_8']['traced_replay']['window_match']} times in a traced "
+         f"replay, at 12 + 8 B2's {async_mapping['window_12_8']['traced_replay']['spd_solve']}; "
+         f"5d local_mapping "
+         f"stage async {async_gate['async']['local_mapping_mean_ms']:.3f} ms against sync "
+         f"{async_gate['sync']['local_mapping_mean_ms']:.3f} ms; syncs a steady frame "
          f"{main_res['profile']['runtime_calls_per_frame'].get('cudaStreamSynchronize', 0)}, "
          f"keyframe frame {PROFILE_KEYFRAME} "
          f"{main_res['keyframe_profile']['runtime_calls'].get('cudaStreamSynchronize', 0)}; "

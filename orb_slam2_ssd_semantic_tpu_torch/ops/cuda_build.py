@@ -7,6 +7,10 @@ Each `csrc/<name>.cu` compiles on first use into
 import every module. `build_all()` starts one nvcc per source at once.
 `register()` takes a kernel from outside the package (a measurement's)
 through the same build and launch; `KERNELS` lists only the port's own.
+`captured` counts, by kernel, the launches made while the current stream
+was capturing a CUDA graph: those kernels run at every replay of the
+graph, which calls no wrapper, so a replay's launches are read from a
+trace of the card, not from a counter.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -114,9 +120,15 @@ class Prepared:
 
 def launch(p: Prepared) -> None:
     """Call the kernel's C launch function; raise with CUDA's message when
-    it returns an error code."""
+    it returns an error code. A launch into a graph being captured also
+    adds one to `captured[p.name]`."""
     lib = load(p.name)
     rc = getattr(lib, p.name)(*p.args)
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{p.name}: CUDA error {rc}: {msg}")
+    if torch.cuda.is_current_stream_capturing():
+        captured[p.name] = captured.get(p.name, 0) + 1
+
+
+captured: dict = {}

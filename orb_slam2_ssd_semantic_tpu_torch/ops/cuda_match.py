@@ -20,7 +20,10 @@ source for the tie rules and the inner loop.
 `window_match` dispatches on the tensors' device: CPU tensors take
 `window_match_reference`, CUDA tensors launch the kernels (or raise).
 `window_match.launches` counts calls of the wrapper that reached the
-card: one per call, although a call launches two CUDA kernels.
+card: one per call, although a call launches two CUDA kernels. A call
+made while a CUDA graph is captured counts once (and in
+`cuda_build.captured`); the graph's replays call no wrapper and count
+nothing.
 `window_match_split_reference` is the two kernels' algorithm step for
 step in PyTorch, for tests of the merge's tie rules where no card is.
 """

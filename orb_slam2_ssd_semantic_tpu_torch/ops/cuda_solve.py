@@ -18,7 +18,8 @@ source for the details.
 
 `spd_solve` dispatches on the tensors' device: CPU tensors take
 `spd_solve_reference`, CUDA tensors launch the kernel (or raise).
-`spd_solve.launches` counts kernel launches.
+`spd_solve.launches` counts kernel launches, a launch into a CUDA graph
+being captured once (see `cuda_build.captured`), a replay never.
 `spd_solve_cholesky_reference` is the kernel's algorithm step for step in
 PyTorch, for tests of its arithmetic where no card is.
 """

@@ -10,7 +10,9 @@ branch under `lax.cond`. Here the scan is a host loop over the frames:
   local-map tracking, keyframe decision, velocity);
 - the keyframe branch is a Python branch on `need_kf`, one stream sync a
   frame (the `Tracker.process` stats fetch, in another place), and in it
-  local mapping waits on one more (`n_kfs >= 3`);
+  local mapping waits on one more (`n_kfs >= 3`); local mapping replays
+  the carry's `LocalMappingRunner` graph (`mapping/graphed_step.py`),
+  which the carries of one run share, so a run captures it once;
 - with a vocabulary, every keyframe event runs loop DETECTION
   (`_detect_loop`) after local mapping, in the JAX scan's order
   (`Tracker.process` runs loop closing before local mapping);
@@ -45,7 +47,7 @@ from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import (
 )
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
 from orb_slam2_ssd_semantic_tpu_torch.io import vocabulary as voc
-from orb_slam2_ssd_semantic_tpu_torch.mapping.local_mapping import local_mapping_step
+from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import LocalMappingRunner
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import (
     SlamState,
     covisibility_row,
@@ -74,6 +76,9 @@ class ScanCarry:
     word_db: torch.Tensor  # (F, K) int64 per-keyframe BoW words (-1 empty)
     val_db: torch.Tensor  # (F, K) f32 deduplicated TF-IDF values
     cons_count: torch.Tensor  # (F,) int32 consecutive-consistency counters
+    # Local mapping's runner (its CUDA graph on the card), made by
+    # `init_scan` and shared by every carry that follows.
+    mapper: LocalMappingRunner
     # The geometry mask's reference views (`use_geom`), else None.
     geom_db: GeomRefViews | None = None
 
@@ -118,7 +123,8 @@ def init_scan(state: SlamState, gray0, depth0, cfg: SlamConfig,
         state=state, last_frame=frame, last_T_cw=T0, last_kp_point=kp_point,
         velocity=torch.eye(4, dtype=torch.float32, device=dev), frames_since_kf=0,
         ref_kf_inliers=int((frame.is_stereo & frame.feats.valid).sum()), frame_idx=1,
-        word_db=word_db, val_db=val_db, cons_count=cons, geom_db=geom_db)
+        word_db=word_db, val_db=val_db, cons_count=cons, geom_db=geom_db,
+        mapper=LocalMappingRunner(dev))
 
 
 def _detect_loop(state: SlamState, frame, word_db, val_db, cons, cfg: SlamConfig,
@@ -225,7 +231,7 @@ def track_sequence_scan(carry: ScanCarry, grays: torch.Tensor, depths: torch.Ten
             state, kp_point = tk.insert_keyframe(state, frame, T_cw, kp_point, frame_idx,
                                                  float(frame_idx), cfg)
             if int(state.n_kfs) >= 3:  # host sync
-                state = local_mapping_step(state, cfg)
+                state = carry.mapper.step(state, cfg)
             if vocab is not None:
                 word_db, val_db, cons, loop_cand = _detect_loop(state, frame, word_db, val_db,
                                                                 cons, cfg, vocab)

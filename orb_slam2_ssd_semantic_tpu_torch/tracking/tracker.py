@@ -6,7 +6,14 @@ loop closing (`mapping/loop_closing.py`) and local mapping per keyframe
 and relocalizes a LOST frame (`tracking/reloc.py`).
 
 Each `lax.cond` of the tracking step is a Python branch on a fetched
-scalar here. Branch syncs per frame (CUDA graphs come later):
+scalar here. Local mapping goes through the tracker's
+`LocalMappingRunner` (`mapping/graphed_step.py`): on the card the step is
+captured into one CUDA graph at the first keyframe that maps (stage
+`local_mapping.capture`, whose first replay maps that keyframe), and
+every later keyframe copies its state in and replays the graph (stage
+`local_mapping`: a few launches where the eager step made ~18,000), as
+JAX dispatches its compiled step. The per-frame
+tracking step still runs eagerly. Branch syncs per frame:
   - every tracked frame: 3 — the motion-model retry test (match count),
     the motion-model success test, and the packed per-frame stats;
   - a frame whose motion model fails: +1 (reference-keyframe path);
@@ -470,6 +477,7 @@ class Tracker:
         self._ref_kf_pose_np = np.eye(4, dtype=np.float32)
         self._retired: dict = {}
         self._lost_streak = 0
+        self._mapper = None
 
     def _to_device(self, a) -> torch.Tensor:
         """A host image on the tracker's device. The card's copy goes from
@@ -578,12 +586,13 @@ class Tracker:
             n_kfs_before = self._n_kfs
             self._on_keyframe_inserted()
             if n_kfs_before + 1 >= 3:
-                from orb_slam2_ssd_semantic_tpu_torch.mapping.local_mapping import (
-                    local_mapping_step,
-                )
-
+                mapper = self.local_mapper()
+                if not mapper.ready(cfg):
+                    with self.metrics.stage("local_mapping.capture"), \
+                            record_function("local_mapping.capture"):
+                        mapper.capture(self.state, cfg)
                 with self.metrics.stage("local_mapping"), record_function("local_mapping"):
-                    self.state = local_mapping_step(self.state, cfg)
+                    self.state = mapper.step(self.state, cfg)
                     if not cfg.tracking.async_mapping:
                         T_cw = self.state.kfs.T_cw[kf_slot]
                         T_np = T_cw.cpu().numpy()
@@ -621,6 +630,15 @@ class Tracker:
 
         self._record(frame, T_cw, T_np, kp_point, velocity, stamp, n_matches, n_inl)
         return T_np
+
+    def local_mapper(self):
+        """The tracker's local-mapping runner (one CUDA graph of the step
+        per configuration on the card), made at the first call."""
+        if self._mapper is None:
+            from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import LocalMappingRunner
+
+            self._mapper = LocalMappingRunner(self.device)
+        return self._mapper
 
     def _on_keyframe_inserted(self):
         """Refresh the host mirrors from the state (post-insert, pre-BA)."""

@@ -12,10 +12,12 @@ another order than XLA (`tests/test_torch_frontend.py`); on these noise
 frames two angles of 256 part by 9.6e-4 rad, short of a BRIEF bin's
 edge. The two tracker runs (20 and 14 frames at 640x480 in JAX)
 run the port alone at 320x240 on the same orbit, at the JAX test's gates;
-the JAX test's third async gate, a local-mapping stage under half the
-synchronous one, reads a host clock that only an asynchronous device
-queue moves: on the CPU the port's local mapping runs where it is
-called, so that gate is left to the card (ROADMAP queue A 8a).
+each run captures local mapping once (`local_mapping.capture`) and maps
+every keyframe through the runner. The JAX test's third async gate, a
+local-mapping stage under half the synchronous one, reads a host clock
+that only an asynchronous device queue moves: on the CPU the runner runs
+the step where it is called. `chip_smoke.py` phase 5d runs that test on
+the card, gates included, at the JAX test's 640x480.
 """
 
 import dataclasses
@@ -214,6 +216,8 @@ def test_async_mapping_tracks_as_sync(orbit):
     for name, async_on in (("sync", False), ("async", True)):
         tr, ate = _run(frames[:14], seq, _qvga_cfg(max_frames_between_kfs=2,
                                                    async_mapping=async_on))
-        out[name] = (ate, tr.metrics.stages["local_mapping"].count)
+        out[name] = (ate, tr.metrics.stages["local_mapping"].count,
+                     tr.metrics.stages["local_mapping.capture"].count)
     assert out["sync"][0] < 0.02 and out["async"][0] < 0.02, out
     assert out["async"][1] >= 2, out
+    assert out["sync"][2] == 1 and out["async"][2] == 1, out

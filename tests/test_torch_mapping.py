@@ -23,6 +23,14 @@ every host read trapped: a tensor's truth value, `item`, `int`, `float`,
 0-d tensor (both read on the host), and `torch.tensor`/`as_tensor` of
 host data or a host number assigned to one element (on the card, a
 pageable copy the host waits for) all raise.
+
+The tracker, the scan and the segmented runner map keyframes through
+`mapping/graphed_step.py::LocalMappingRunner`: on the card one CUDA
+graph of the step, replayed; on the CPU the same copies into its static
+buffers and the step run eagerly on them. Its CPU path must equal the eager step bit for
+bit over two steps, leave every state it returned alone, refuse a state
+of other shapes or dtypes and read nothing on the host. Its card path
+is held to the eager step by `chip_smoke.py` phase 5b.
 """
 
 import contextlib
@@ -42,6 +50,7 @@ from orb_slam2_ssd_semantic_tpu.mapping import triangulation as jtri
 from orb_slam2_ssd_semantic_tpu.tracking.tracker import Tracker as JTracker
 from orb_slam2_ssd_semantic_tpu_torch.mapping import ba as tba
 from orb_slam2_ssd_semantic_tpu_torch.mapping import local_mapping as tlm
+from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import LocalMappingRunner, state_leaves
 from orb_slam2_ssd_semantic_tpu_torch.mapping import triangulation as ttri
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import state_from_numpy, state_to_numpy
 from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
@@ -260,6 +269,96 @@ def test_local_mapping_step_waits_on_nothing(jax_map, jax_step):
     state = state_from_numpy(tree, CPU)
     with highest_precision(), host_reads_trapped():
         out = tlm.local_mapping_step(state, tcfg)
+    _check_step(jax_step, state_to_numpy(out), tree)
+
+
+def assert_states_equal(a, b):
+    for (path, x), (_, y) in zip(state_leaves(a), state_leaves(b), strict=True):
+        assert x.dtype == y.dtype and torch.equal(x, y), path
+
+
+@pytest.fixture(scope="module")
+def runner_steps(jax_map):
+    """Two successive steps through the runner's CPU path and through the
+    eager step, from the fixture's map; with copies of the runner's first
+    output and of its input, taken before the second step."""
+    _, _, tree = jax_map
+    tcfg = small_config(tconfig)
+    state = state_from_numpy(tree, CPU)
+    runner = LocalMappingRunner("cpu")
+    with highest_precision():
+        first = runner.step(state, tcfg)
+        kept = {"input": [t.clone() for _, t in state_leaves(state)],
+                "first": [t.clone() for _, t in state_leaves(first)]}
+        second = runner.step(first, tcfg)
+        eager1 = tlm.local_mapping_step(state, tcfg)
+        eager2 = tlm.local_mapping_step(eager1, tcfg)
+    return dict(state=state, runner=runner, first=first, second=second, eager=(eager1, eager2),
+                kept=kept)
+
+
+def test_runner_matches_eager_step_and_jax(jax_map, jax_step, runner_steps):
+    """Two steps through the runner equal two eager steps bit for bit; the
+    first equals JAX's step at `test_local_mapping_step_matches_jax`'s
+    tolerances."""
+    _, _, tree = jax_map
+    eager1, eager2 = runner_steps["eager"]
+    assert_states_equal(runner_steps["first"], eager1)
+    assert_states_equal(runner_steps["second"], eager2)
+    _check_step(jax_step, state_to_numpy(runner_steps["first"]), tree)
+    moved = (runner_steps["second"].kfs.T_cw != runner_steps["first"].kfs.T_cw).any()
+    assert bool(moved) or not torch.equal(runner_steps["second"].points.pos,
+                                          runner_steps["first"].points.pos), \
+        "the second step changed nothing: vacuous"
+
+
+def test_runner_leaves_returned_states_alone(runner_steps):
+    """The state returned for step 1 and the state given to it are
+    unchanged on every leaf after step 2, which wrote the runner's output
+    buffers again; an unchanged leaf is the caller's own tensor, a changed
+    one no tensor the runner keeps and no memory of its outputs."""
+    for name, state in (("input", runner_steps["state"]), ("first", runner_steps["first"])):
+        for (path, t), kept in zip(state_leaves(state), runner_steps["kept"][name], strict=True):
+            assert torch.equal(t, kept), (name, path)
+    captured = runner_steps["runner"]._captured
+    assert len(captured) == 1
+    static = {id(t) for c in captured.values() for t in c.static_in}
+    inputs = {id(t) for _, t in state_leaves(runner_steps["state"])}
+    out = state_leaves(runner_steps["first"])
+    assert not any(id(t) in static for _, t in out)
+    graph_out = {t.untyped_storage().data_ptr() for c in captured.values()
+                 for _, t in state_leaves(c.out_state)}
+    assert not any(t.untyped_storage().data_ptr() in graph_out for _, t in out)
+    assert 0 < sum(id(t) in inputs for _, t in out) < len(out)
+
+
+def test_runner_refuses_another_shape_or_dtype(jax_map):
+    _, _, tree = jax_map
+    tcfg = small_config(tconfig)
+    state = state_from_numpy(tree, CPU)
+    runner = LocalMappingRunner("cpu")
+    runner.capture(state, tcfg)
+    assert runner.ready(tcfg)
+    assert runner.ready(tcfg.replace(tracking=dataclasses.replace(
+        tcfg.tracking, async_mapping=not tcfg.tracking.async_mapping)))
+    assert not runner.ready(tcfg.replace(map=dataclasses.replace(tcfg.map, fuse_neighbors=1)))
+    wider = state.replace(kfs=state.kfs.replace(uv=torch.cat([state.kfs.uv, state.kfs.uv], 1)))
+    other_dtype = state.replace(points=state.points.replace(n_obs=state.points.n_obs.long()))
+    for bad, path in ((wider, "state.kfs.uv"), (other_dtype, "state.points.n_obs")):
+        with pytest.raises(ValueError, match=path.replace(".", r"\.")):
+            runner.step(bad, tcfg)
+
+
+def test_runner_waits_on_nothing(jax_map, jax_step):
+    """The runner's CPU path with every host read trapped: its copies, the
+    step and the clones read nothing on the host, and the result still
+    matches JAX."""
+    _, _, tree = jax_map
+    tcfg = small_config(tconfig)
+    state = state_from_numpy(tree, CPU)
+    runner = LocalMappingRunner("cpu")
+    with highest_precision(), host_reads_trapped():
+        out = runner.step(state, tcfg)
     _check_step(jax_step, state_to_numpy(out), tree)
 
 
