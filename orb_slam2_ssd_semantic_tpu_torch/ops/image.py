@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import device_constant
+
 
 def gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
     """Matches cv::getGaussianKernel for odd ksize."""
@@ -43,12 +45,14 @@ def conv1d_axis(x: torch.Tensor, k, axis: int) -> torch.Tensor:
     return out
 
 
-def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+@device_constant
+def _resize_weights(n_in: int, n_out: int) -> torch.Tensor:
     """(n_in, n_out) weights of `jax.image.resize(method="linear")`: a
     triangle kernel, widened by the downscale factor (antialiasing),
     column-normalised — computed in f32 with the same formulas. Plain
     bilinear interpolation (F.interpolate) does not widen the kernel and
-    gives other pixels."""
+    gives other pixels. Made once per size and device: an upload on every
+    call would be a copy the host waits for."""
     f32, f64 = torch.float32, torch.float64
     # Reproduce the arithmetic XLA compiles this to, so that the rounded
     # pyramid pixels agree: the scale is a host float64 constant rounded
@@ -70,8 +74,7 @@ def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
         torch.zeros_like(w),
     )
     inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
-    w = torch.where(inside[None, :], w, torch.zeros_like(w))
-    return w.to(device)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
 def resize_linear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -79,8 +82,8 @@ def resize_linear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     ..., "linear")` semantics, as two weight-matrix products (full f32:
     the entry points turn TF32 off); leading dims are a batch."""
     h, w = img.shape[-2:]
-    wh = _resize_weights(h, out_h, img.device)
-    ww = _resize_weights(w, out_w, img.device)
+    wh = _resize_weights(h, out_h, device=img.device)
+    ww = _resize_weights(w, out_w, device=img.device)
     return (wh.T @ img) @ ww
 
 

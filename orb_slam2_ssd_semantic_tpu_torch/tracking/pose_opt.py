@@ -8,11 +8,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from orb_slam2_ssd_semantic_tpu_torch.config import CameraConfig, OptimizerConfig
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
 from orb_slam2_ssd_semantic_tpu_torch.ops.linalg import cholesky_solve_small
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import device_constant
 
 
 @dataclasses.dataclass
@@ -50,20 +52,29 @@ def _chi2(e, w_info, comp_w):
     return torch.sum(e * e * comp_w, dim=-1) * w_info
 
 
+@device_constant
+def _component_weights() -> np.ndarray:
+    """(2, 1, 3): the residual components a stereo and a monocular
+    observation weigh (uR only for stereo)."""
+    return np.array([[[1.0, 1.0, 1.0]], [[1.0, 1.0, 0.0]]], np.float32)
+
+
+@device_constant
+def _per_observation(chi2_stereo, chi2_mono, delta_stereo, delta_mono) -> np.ndarray:
+    """(2, 2) float32: [chi2 gate, Huber delta] x [stereo, monocular]."""
+    return np.array([[chi2_stereo, chi2_mono], [delta_stereo, delta_mono]], np.float32)
+
+
 def pose_optimize(T_init, pts_w, obs_uvr, inv_sigma2, is_stereo, valid, cam: CameraConfig,
                   cfg: OptimizerConfig = OptimizerConfig()) -> PoseOptResult:
     """Optimize T_cw from 3D-2D(3) correspondences. pts_w (N, 3),
     obs_uvr (N, 3), inv_sigma2 (N,), is_stereo / valid (N,) bool."""
     dev = pts_w.device
-    comp_w = torch.where(
-        is_stereo[:, None],
-        torch.ones((1, 3), dtype=torch.float32, device=dev),
-        torch.tensor([[1.0, 1.0, 0.0]], dtype=torch.float32, device=dev),
-    )
-    chi2_th = torch.where(is_stereo, torch.tensor(cfg.chi2_stereo, device=dev),
-                          torch.tensor(cfg.chi2_mono, device=dev))
-    delta = torch.where(is_stereo, torch.tensor(cfg.huber_delta_stereo, device=dev),
-                        torch.tensor(cfg.huber_delta_mono, device=dev))
+    comp_w = torch.where(is_stereo[:, None], *_component_weights(device=dev))
+    chi2_th, delta = _per_observation(cfg.chi2_stereo, cfg.chi2_mono, cfg.huber_delta_stereo,
+                                      cfg.huber_delta_mono, device=dev)
+    chi2_th = torch.where(is_stereo, chi2_th[0], chi2_th[1])
+    delta = torch.where(is_stereo, delta[0], delta[1])
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     lam = cfg.lm_lambda_init
 

@@ -7,12 +7,15 @@ The JAX module runs the sequence as one `lax.scan` with the keyframe
 branch under `lax.cond`. Here the scan is a host loop over the frames:
 - the per-frame half of a step is the tracker's `fused_track_step`
   (frame build, motion model with the reference-keyframe fallback,
-  local-map tracking, keyframe decision, velocity);
+  local-map tracking, keyframe decision, velocity), replayed from the
+  carry's `TrackStepRunner` graph (`tracking/graphed_track.py`);
 - the keyframe branch is a Python branch on `need_kf`, one stream sync a
   frame (the `Tracker.process` stats fetch, in another place), and in it
   local mapping waits on one more (`n_kfs >= 3`); local mapping replays
-  the carry's `LocalMappingRunner` graph (`mapping/graphed_step.py`),
-  which the carries of one run share, so a run captures it once;
+  the carry's `LocalMappingRunner` graph (`mapping/graphed_step.py`).
+  The carries of one run share both runners, so a run captures each
+  once. (JAX's keyframe branch is a `lax.cond` inside its one `lax.scan`;
+  on the card that would need conditional graph nodes.)
 - with a vocabulary, every keyframe event runs loop DETECTION
   (`_detect_loop`) after local mapping, in the JAX scan's order
   (`Tracker.process` runs loop closing before local mapping);
@@ -54,6 +57,7 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import (
     empty_state,
 )
 from orb_slam2_ssd_semantic_tpu_torch.tracking import tracker as tk
+from orb_slam2_ssd_semantic_tpu_torch.tracking.graphed_track import TrackStepRunner
 from orb_slam2_ssd_semantic_tpu_torch.utils import precision
 from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import scatter
 
@@ -79,6 +83,8 @@ class ScanCarry:
     # Local mapping's runner (its CUDA graph on the card), made by
     # `init_scan` and shared by every carry that follows.
     mapper: LocalMappingRunner
+    # The tracking step's runner, the same way.
+    track: TrackStepRunner
     # The geometry mask's reference views (`use_geom`), else None.
     geom_db: GeomRefViews | None = None
 
@@ -124,7 +130,7 @@ def init_scan(state: SlamState, gray0, depth0, cfg: SlamConfig,
         velocity=torch.eye(4, dtype=torch.float32, device=dev), frames_since_kf=0,
         ref_kf_inliers=int((frame.is_stereo & frame.feats.valid).sum()), frame_idx=1,
         word_db=word_db, val_db=val_db, cons_count=cons, geom_db=geom_db,
-        mapper=LocalMappingRunner(dev))
+        mapper=LocalMappingRunner(dev), track=TrackStepRunner(dev))
 
 
 def _detect_loop(state: SlamState, frame, word_db, val_db, cons, cfg: SlamConfig,
@@ -222,7 +228,7 @@ def track_sequence_scan(carry: ScanCarry, grays: torch.Tensor, depths: torch.Ten
             gmask = geometry_dynamic_mask(geom_db, velocity @ last_T_cw,
                                           tk.depth_metres(depths[i]), cfg.camera, cfg.dynamic)
             mask = gmask if mask is None else mask & gmask
-        state, frame, T_cw, vel, kp_point, packed = tk.fused_track_step(
+        state, frame, T_cw, vel, kp_point, packed = carry.track.step(
             state, grays[i], depths[i], last_frame, last_T_cw, last_kp_point, velocity,
             frames_since_kf, ref_kf_inliers, cfg, static_mask=mask)
         status = packed[16].to(torch.int64)

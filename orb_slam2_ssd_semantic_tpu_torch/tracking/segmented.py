@@ -25,10 +25,11 @@ driven from the host, so it runs them in order: it reads segment s, then
 runs segment s+1 from the carry as corrected. Every segment after a
 correction thus starts from the corrected carry, as in JAX; only the
 timing differs. The carries of one run share one `LocalMappingRunner`
-(made by `init_scan`), so local mapping is captured into one CUDA graph
-once a run and replayed in every segment; the states it returns are
-never overwritten by a later replay, so a carry kept for a correction
-stays as it was.
+and one `TrackStepRunner` (made by `init_scan`), so local mapping and
+the per-frame tracking step are each captured into one CUDA graph once a
+run and replayed in every segment; what they return is never
+overwritten by a later replay, so a carry kept for a correction stays as
+it was.
 
 The per-frame trajectory is kept keyframe-relative (uid + T_rel), as the
 reference's SaveTrajectoryTUM (System.cc:476-502) keeps it: a correction

@@ -5,38 +5,40 @@ keyframe insertion, and the host-side `Tracker` that sequences them, runs
 loop closing (`mapping/loop_closing.py`) and local mapping per keyframe
 and relocalizes a LOST frame (`tracking/reloc.py`).
 
-Each `lax.cond` of the tracking step is a Python branch on a fetched
-scalar here. Local mapping goes through the tracker's
-`LocalMappingRunner` (`mapping/graphed_step.py`): on the card the step is
-captured into one CUDA graph at the first keyframe that maps (stage
-`local_mapping.capture`, whose first replay maps that keyframe), and
-every later keyframe copies its state in and replays the graph (stage
-`local_mapping`: a few launches where the eager step made ~18,000), as
-JAX dispatches its compiled step. The per-frame
-tracking step still runs eagerly. Branch syncs per frame:
-  - every tracked frame: 3 — the motion-model retry test (match count),
-    the motion-model success test, and the packed per-frame stats;
-  - a frame whose motion model fails: +1 (reference-keyframe path);
-  - a keyframe: +2 in insertion (store-full test, reference count) and
-    +5 host mirrors, all before local mapping is dispatched. Local
-    mapping itself never waits on the card (its `cond`s and its BA's
-    early exit are selects on the device), so with `async_mapping` the
-    frame goes on while it runs and the next frame's stats fetch is
-    where the host meets it, as in JAX; with loop closing on, its
-    database fetch, and past the recency gate the host copies of
-    detection and, per candidate, of the transform estimate and the
-    correction (`chip_smoke.py` phase 7 counts them);
+The tracking step (`fused_track_step`) never reads the card on the host:
+JAX's `lax.cond`s in it (the doubled-window retry, the reference-keyframe
+fallback) are selects between both branches, computed every frame, and
+the frame counter and reference inlier count enter as device scalars.
+`Tracker.process` replays it from the tracker's `TrackStepRunner`
+(`tracking/graphed_track.py`): on the card one CUDA graph per kind of
+frame, captured at the first tracked frame (stage `track.capture`), and
+a tracked frame then makes its two image uploads, the copies into the
+graph's inputs, one `cudaGraphLaunch` and one fetch of the packed stats
+(stage `track`), as JAX's compiled step makes one transfer. Local mapping
+goes through the tracker's `LocalMappingRunner`
+(`mapping/graphed_step.py`) the same way: captured at the first keyframe
+that maps (stage `local_mapping.capture`, whose first replay maps that
+keyframe), replayed at every later one (stage `local_mapping`). Host
+reads per frame:
+  - every tracked frame: 1, the packed per-frame stats;
+  - a keyframe: the reference count after insertion, the retirement
+    records (`_capture_retirements`) and +5 host mirrors, all before
+    local mapping is dispatched; the full-store test in insertion is a
+    select (JAX's `lax.cond`). Local mapping itself never waits on the
+    card, so with `async_mapping` the frame goes on while it runs and
+    the next frame's stats fetch is where the host meets it, as in JAX;
+    with loop closing on, its database fetch, and past the recency gate
+    the host copies of detection and, per candidate, of the transform
+    estimate and the correction (`chip_smoke.py` phase 7 counts them);
   - a LOST frame (or WEAK, in localization-only mode): relocalization's
     candidate scores, and per candidate its RANSAC and refinement
     inlier counts.
-  - a masked frame: the flow mask adds about 27 (each of its 11 resizes
-    uploads two weight matrices from the host, and `eigh` and `inv`
-    check their results), the geometry mask 1 (`chip_smoke.py` phase
-    9c profiles a steady masked frame).
-Beyond these, a tracking step still turns some host scalars into device
-tensors with a blocking copy: `chip_smoke.py` counts all stream
-synchronisations of a steady frame and of a keyframe frame on the card,
-and those inside the `local_mapping` range (phase 5b: none).
+  - a masked frame: the flow mask about 5 (`eigh` and `inv` check their
+    results), the geometry mask 1 (`chip_smoke.py` phase 9c profiles a
+    steady masked frame).
+`chip_smoke.py` phase 4 counts the stream synchronisations of a steady
+frame (one) and of a keyframe frame on the card, and those inside the
+`local_mapping` range (none).
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ from orb_slam2_ssd_semantic_tpu_torch.ops import image as image_ops
 from orb_slam2_ssd_semantic_tpu_torch.ops import match as match_ops
 from orb_slam2_ssd_semantic_tpu_torch.tracking.pose_opt import pose_optimize
 from orb_slam2_ssd_semantic_tpu_torch.utils import precision
-from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import scatter, top_k
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import device_constant, row, scatter, top_k
 
 
 @dataclasses.dataclass
@@ -76,6 +78,11 @@ class Frame:
 
 def _eye4(device) -> torch.Tensor:
     return torch.eye(4, dtype=torch.float32, device=device)
+
+
+@device_constant
+def _f32_scalar(v: float) -> np.ndarray:
+    return np.array(v, np.float32)
 
 
 def depth_metres(depth_img: torch.Tensor) -> torch.Tensor:
@@ -165,9 +172,13 @@ def track_motion_model(frame: Frame, last_frame: Frame, last_T_cw, T_pred, cfg: 
             lf.desc, frame.feats.desc, centers, frame.feats.uv, vis, frame.feats.valid, r,
             angle_q=lf.angle, angle_t=frame.feats.angle, max_dist=match_ops.TH_HIGH)
 
-    m = match_r(radius)
-    if int(m.valid.sum()) < cfg.tracking.min_matches_track:  # host sync
-        m = match_r(2.0 * radius)
+    # The doubled-window retry (JAX's `lax.cond`) as a select on the card:
+    # both windows are matched, the second kept when the first is thin.
+    m1, m2 = match_r(radius), match_r(2.0 * radius)
+    thin = m1.valid.sum() < cfg.tracking.min_matches_track
+    m = match_ops.MatchResult(torch.where(thin, m2.idx, m1.idx),
+                              torch.where(thin, m2.dist, m1.dist),
+                              torch.where(thin, m2.valid, m1.valid))
     res, _ = _pose_from_matches(T_pred, pts_w, frame, m, cfg)
     return res.T_cw, m.valid.sum(), res.num_inliers
 
@@ -179,13 +190,13 @@ def track_reference_kf(state: SlamState, frame: Frame, last_T_cw, cfg: SlamConfi
     kf = state.last_kf
     P = state.points.pos.shape[0]
     K = frame.feats.capacity
-    pid = state.kfs.kp_point[kf]
+    pid = row(state.kfs.kp_point, kf)
     pidc = pid.clamp(0, P - 1)
-    vk = state.kfs.kp_valid[kf] & (pid >= 0) & state.points.valid[pidc]
-    dist = match_ops.hamming_matrix(state.kfs.desc[kf], frame.feats.desc)
+    vk = row(state.kfs.kp_valid, kf) & (pid >= 0) & state.points.valid[pidc]
+    dist = match_ops.hamming_matrix(row(state.kfs.desc, kf), frame.feats.desc)
     m = match_ops.masked_best_match(dist, vk[:, None] & frame.feats.valid[None, :],
                                     max_dist=match_ops.TH_LOW, ratio=0.7, mutual=True)
-    keep = match_ops.rotation_consistency_mask(state.kfs.angle[kf], frame.feats.angle, m)
+    keep = match_ops.rotation_consistency_mask(row(state.kfs.angle, kf), frame.feats.angle, m)
     m = match_ops._masked_result(keep, m.idx, m.dist)
     m = match_ops.resolve_duplicate_targets(m, K)
     res, _ = _pose_from_matches(last_T_cw, state.points.pos[pidc], frame, m, cfg)
@@ -211,7 +222,7 @@ def track_local_map(state: SlamState, frame: Frame, T_cur, cfg: SlamConfig):
     c_valid = in_frustum[cand]
     c_pos = pts.pos[cand]
     ratio = torch.clamp(pts.max_dist[cand] / torch.clamp(dist[cand], min=1e-6), min=1e-6)
-    log_s = torch.log(torch.tensor(cfg.orb.scale_factor, dtype=torch.float32, device=dev))
+    log_s = torch.log(_f32_scalar(cfg.orb.scale_factor, device=dev))
     pred_level = torch.ceil(torch.log(ratio) / log_s).to(torch.int64).clamp(0, cfg.orb.n_levels - 1)
     radius = cfg.matcher.lm_search_radius * sf[pred_level]
     c_uv, c_z = cam_ops.project(se3.transform_points(T_cur, c_pos), cam)
@@ -284,9 +295,12 @@ def _spawn_points(state: SlamState, frame: Frame, T_cw, kp_point, kf_id, kf_uid,
     return state.replace(points=pts, n_points=state.n_points + ok.sum().to(torch.int32)), kp_point
 
 
-def _retire_evicted(state: SlamState, slot) -> SlamState:
-    """Record the evicted live keyframe's spanning-tree link and re-point
-    landmarks anchored on it at a surviving observer."""
+def _retire_evicted(state: SlamState, slot, was_valid) -> SlamState:
+    """Where `was_valid` (the slot held a live keyframe, which insertion
+    evicts): record its spanning-tree link and re-point landmarks anchored
+    on it at a surviving observer; elsewhere `state` as it was. JAX runs
+    this under `lax.cond`; here both sides are one computation, masked on
+    the card, so a full store costs no host read."""
     kfs = state.kfs
     F, K = kfs.kp_point.shape
     P = state.points.pos.shape[0]
@@ -295,17 +309,17 @@ def _retire_evicted(state: SlamState, slot) -> SlamState:
     eligible = kfs.valid & (torch.arange(F, device=dev) != slot)
     par_sc = torch.where(eligible, covrow, torch.full_like(covrow, -1.0))
     parent = torch.argmax(par_sc)
-    parent = torch.where(par_sc[parent] > 0, parent, state.last_kf)
-    T_rel = kfs.T_cw[slot] @ se3.se3_inverse(kfs.T_cw[parent])
-    retired = push_retired(state.retired, torch.ones((1,), dtype=torch.bool, device=dev),
-                           kfs.uid[slot][None], kfs.uid[parent][None], T_rel[None])
+    parent = torch.where(row(par_sc, parent) > 0, parent, state.last_kf)
+    T_rel = row(kfs.T_cw, slot) @ se3.se3_inverse(row(kfs.T_cw, parent))
+    retired = push_retired(state.retired, was_valid.reshape(1), row(kfs.uid, slot)[None],
+                           row(kfs.uid, parent)[None], T_rel[None])
     tracked_all = (kfs.kp_point >= 0) & kfs.kp_valid
     surv_obs = torch.where(eligible[:, None] & tracked_all, kfs.kp_point,
                            torch.full_like(kfs.kp_point, P)).reshape(-1)
     surv_ref = scatter(torch.full((P + 1,), -1, dtype=torch.int64, device=dev), surv_obs,
                        torch.arange(F, device=dev).repeat_interleave(K), "amax")[:P]
     ref_kf = state.points.ref_kf
-    orphan = state.points.valid & (ref_kf == slot)
+    orphan = state.points.valid & (ref_kf == slot) & was_valid
     new_ref = torch.where(orphan, torch.where(surv_ref >= 0, surv_ref, parent), ref_kf)
     return state.replace(retired=retired, points=state.points.replace(ref_kf=new_ref))
 
@@ -324,12 +338,11 @@ def insert_keyframe(state: SlamState, frame: Frame, T_cw, kp_point, frame_id: in
         kfs.valid & (torch.arange(F, device=dev) != state.last_kf) & (kfs.uid > 0),
         -kfs.uid, torch.full_like(kfs.uid, -(2**30)))
     slot = torch.where(free < F, free, torch.argmax(evict_score))
-    was_valid = kfs.valid[slot]
-    if bool(was_valid):  # host sync: store full
-        state = _retire_evicted(state, slot)
+    was_valid = row(kfs.valid, slot)
+    state = _retire_evicted(state, slot, was_valid)
 
-    row = kfs.kp_point[slot]
-    n_obs = scatter(state.points.n_obs, torch.where(was_valid & (row >= 0), row, torch.full_like(row, P)),
+    old = row(kfs.kp_point, slot)
+    n_obs = scatter(state.points.n_obs, torch.where(was_valid & (old >= 0), old, torch.full_like(old, P)),
                     -1, "add")
     n_obs = scatter(n_obs, torch.where(kp_point >= 0, kp_point, torch.full_like(kp_point, P)), 1, "add")
     state = state.replace(points=state.points.replace(n_obs=torch.clamp(n_obs, min=0)))
@@ -368,16 +381,28 @@ def motion_velocity(T_cw, last_T_cw, status, cfg: SlamConfig) -> torch.Tensor:
 
 
 def fused_track_step(state: SlamState, gray, depth_img, last_frame: Frame, last_T_cw,
-                     last_kp_point, velocity, frames_since_kf: int, ref_kf_inliers: int,
+                     last_kp_point, velocity, frames_since_kf, ref_kf_inliers,
                      cfg: SlamConfig, feats: Features | None = None,
                      static_mask: torch.Tensor | None = None):
     """The per-frame hot path: frame build (dropping keypoints on the
     pixels `static_mask` marks dynamic), motion-model tracking (with
     the reference-keyframe fallback), local-map tracking, pose selection,
-    keyframe decision, velocity update. Returns (state, frame, T_cw,
-    velocity, kp_point, packed) with packed = [T_cw flat (16), status,
-    need_kf, n_inliers, n_matches, n_inl_mm] float32."""
+    keyframe decision, velocity update. `frames_since_kf` and
+    `ref_kf_inliers`: 0-d int64 tensors (a Python int is made one).
+    Returns (state, frame, T_cw, velocity, kp_point, packed) with packed =
+    [T_cw flat (16), status, need_kf, n_inliers, n_matches, n_inl_mm]
+    float32.
+
+    Nothing in it reads the card on the host: JAX's two `lax.cond`s (the
+    doubled-window retry, the reference-keyframe fallback) are selects
+    between both branches, computed every frame, so one CUDA graph holds
+    the step (`tracking/graphed_track.py`)."""
     t = cfg.tracking
+    dev = last_T_cw.device
+    if not isinstance(frames_since_kf, torch.Tensor):
+        frames_since_kf = torch.full((), frames_since_kf, dtype=torch.int64, device=dev)
+    if not isinstance(ref_kf_inliers, torch.Tensor):
+        ref_kf_inliers = torch.full((), ref_kf_inliers, dtype=torch.int64, device=dev)
     frame = (frame_from_features(feats, depth_img, cfg, static_mask) if feats is not None
              else build_frame(gray, depth_img, cfg, static_mask))
     T_pred = velocity @ last_T_cw
@@ -386,10 +411,10 @@ def fused_track_step(state: SlamState, gray, depth_img, last_frame: Frame, last_
         map_valid=state.points.valid, last_kp_point=last_kp_point)
     mm_jump = torch.linalg.norm(T_mm[:3, 3] - T_pred[:3, 3])
     ok_mm = (n_inl_mm >= t.min_inliers_track) & (mm_jump < 0.5)
-    if bool(ok_mm):  # host sync
-        T_ref, n_inl_ref = T_mm, n_inl_mm
-    else:
-        T_ref, n_inl_ref = track_reference_kf(state, frame, last_T_cw, cfg)
+    # The reference-keyframe fallback runs every frame (JAX's `lax.cond`
+    # runs it where the motion model failed): `ok_ref` and `T_seed` take
+    # it only there.
+    T_ref, n_inl_ref = track_reference_kf(state, frame, last_T_cw, cfg)
     ok_ref = (~ok_mm) & (n_inl_ref >= t.min_inliers_track)
     ok_pre = ok_mm | ok_ref
     T_seed = torch.where(ok_mm, T_mm, torch.where(ok_ref, T_ref, T_pred))
@@ -406,7 +431,7 @@ def fused_track_step(state: SlamState, gray, depth_img, last_frame: Frame, last_
     need_kf = ok_lm & (
         (frames_since_kf >= t.max_frames_between_kfs)
         | need_close
-        | (res.n_inliers < t.kf_ref_ratio * max(ref_kf_inliers, 1))
+        | (res.n_inliers < t.kf_ref_ratio * torch.clamp(ref_kf_inliers, min=1))
         | (res.n_inliers < t.kf_min_inliers)
     ) & (res.n_inliers >= t.min_inliers_track)
 
@@ -478,6 +503,7 @@ class Tracker:
         self._retired: dict = {}
         self._lost_streak = 0
         self._mapper = None
+        self._track_runner = None
 
     def _to_device(self, a) -> torch.Tensor:
         """A host image on the tracker's device. The card's copy goes from
@@ -539,11 +565,15 @@ class Tracker:
                          stamp, 0, 0)
             return np.eye(4, dtype=np.float32)
 
-        with self.metrics.stage("track"):
-            self.state, frame, T_cw, velocity, kp_point, packed = fused_track_step(
-                self.state, gray, depth, self.last_frame, self.last_T_cw, self.last_kp_point,
-                self.velocity, self.frames_since_kf, self.ref_kf_inliers, cfg, feats=feats,
-                static_mask=static_mask)
+        args = (self.state, gray, depth, self.last_frame, self.last_T_cw, self.last_kp_point,
+                self.velocity, self.frames_since_kf, self.ref_kf_inliers, cfg)
+        runner = self.track_runner()
+        if not runner.ready(cfg, static_mask, feats):
+            with self.metrics.stage("track.capture"), record_function("track.capture"):
+                runner.capture(*args, feats=feats, static_mask=static_mask)
+        with self.metrics.stage("track"), record_function("track"):
+            self.state, frame, T_cw, velocity, kp_point, packed = runner.step(
+                *args, feats=feats, static_mask=static_mask)
             p = packed.cpu().numpy()  # the per-frame stats fetch
         T_np = p[:16].reshape(4, 4).astype(np.float32)
         status_code, need_kf = int(p[16]), bool(p[17] > 0.5)
@@ -630,6 +660,16 @@ class Tracker:
 
         self._record(frame, T_cw, T_np, kp_point, velocity, stamp, n_matches, n_inl)
         return T_np
+
+    def track_runner(self):
+        """The tracker's runner of `fused_track_step` (one CUDA graph of the
+        step per configuration and kind of frame on the card), made at the
+        first call."""
+        if self._track_runner is None:
+            from orb_slam2_ssd_semantic_tpu_torch.tracking.graphed_track import TrackStepRunner
+
+            self._track_runner = TrackStepRunner(self.device)
+        return self._track_runner
 
     def local_mapper(self):
         """The tracker's local-mapping runner (one CUDA graph of the step

@@ -18,7 +18,8 @@ same map to the port. Tolerances, and why:
 
 The port's local-mapping step never waits on the card (the tracker
 dispatches it and tracks on). On the CPU that is held by running it with
-every host read trapped: a tensor's truth value, `item`, `int`, `float`,
+every host read trapped (`tests/_torch_host_reads.py`, which the tracking
+step's tests share): a tensor's truth value, `item`, `int`, `float`,
 `tolist`, `cpu`, `numpy`, `nonzero`, indexing by a boolean mask or by a
 0-d tensor (both read on the host), and `torch.tensor`/`as_tensor` of
 host data or a host number assigned to one element (on the card, a
@@ -33,7 +34,6 @@ of other shapes or dtypes and read nothing on the host. Its card path
 is held to the eager step by `chip_smoke.py` phase 5b.
 """
 
-import contextlib
 import dataclasses
 
 import jax.numpy as jnp
@@ -50,11 +50,16 @@ from orb_slam2_ssd_semantic_tpu.mapping import triangulation as jtri
 from orb_slam2_ssd_semantic_tpu.tracking.tracker import Tracker as JTracker
 from orb_slam2_ssd_semantic_tpu_torch.mapping import ba as tba
 from orb_slam2_ssd_semantic_tpu_torch.mapping import local_mapping as tlm
-from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import LocalMappingRunner, state_leaves
+from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import (
+    GraphedStep,
+    LocalMappingRunner,
+    state_leaves,
+)
 from orb_slam2_ssd_semantic_tpu_torch.mapping import triangulation as ttri
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import state_from_numpy, state_to_numpy
 from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
 from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import scatter
+from _torch_host_reads import HostRead, host_reads_trapped
 from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
@@ -186,68 +191,6 @@ def test_local_mapping_step_matches_jax(jax_map, jax_step):
     _check_step(jax_step, out_t, tree)
 
 
-class HostRead(AssertionError):
-    pass
-
-
-@contextlib.contextmanager
-def host_reads_trapped():
-    """Inside, every way of reading a tensor on the host, or of making one
-    from host data, raises `HostRead`."""
-    T = torch.Tensor
-    saved = []
-
-    def patch(owner, name, fn):
-        saved.append((owner, name, getattr(owner, name)))
-        setattr(owner, name, fn)
-
-    def refuse(name):
-        def call(*args, **kwargs):
-            raise HostRead(name)
-        return call
-
-    def host_index(idx):
-        for i in idx if isinstance(idx, tuple) else (idx,):
-            if isinstance(i, T) and (i.dtype == torch.bool or i.dim() == 0):
-                return True
-        return False
-
-    get, set_, tensor, as_tensor = T.__getitem__, T.__setitem__, torch.tensor, torch.as_tensor
-
-    def getitem(self, idx):
-        if host_index(idx):
-            raise HostRead("index by a mask or a 0-d tensor")
-        return get(self, idx)
-
-    def setitem(self, idx, value):
-        if host_index(idx):
-            raise HostRead("index assignment by a mask or a 0-d tensor")
-        if not isinstance(value, T) and get(self, idx).dim() == 0:
-            raise HostRead("a host number assigned to one element (copied over)")
-        return set_(self, idx, value)
-
-    def from_host(make, name):
-        def call(data, *args, **kwargs):
-            if not isinstance(data, T):
-                raise HostRead(f"{name} of host data")
-            return make(data, *args, **kwargs)
-        return call
-
-    for name in ("__bool__", "item", "__int__", "__float__", "__index__", "tolist", "cpu",
-                 "numpy", "nonzero"):
-        patch(T, name, refuse(name))
-    patch(T, "__getitem__", getitem)
-    patch(T, "__setitem__", setitem)
-    patch(torch, "nonzero", refuse("torch.nonzero"))
-    patch(torch, "tensor", from_host(tensor, "torch.tensor"))
-    patch(torch, "as_tensor", from_host(as_tensor, "torch.as_tensor"))
-    try:
-        yield
-    finally:
-        for owner, name, fn in reversed(saved):
-            setattr(owner, name, fn)
-
-
 def test_host_read_trap_fires():
     x = torch.arange(4)
     for read in (lambda: bool(x[0] > 1), lambda: x.sum().item(), lambda: int(x[1]),
@@ -327,7 +270,7 @@ def test_runner_leaves_returned_states_alone(runner_steps):
     out = state_leaves(runner_steps["first"])
     assert not any(id(t) in static for _, t in out)
     graph_out = {t.untyped_storage().data_ptr() for c in captured.values()
-                 for _, t in state_leaves(c.out_state)}
+                 for _, t in state_leaves(c.out, "out")}
     assert not any(t.untyped_storage().data_ptr() in graph_out for _, t in out)
     assert 0 < sum(id(t) in inputs for _, t in out) < len(out)
 
@@ -360,6 +303,33 @@ def test_runner_waits_on_nothing(jax_map, jax_step):
     with highest_precision(), host_reads_trapped():
         out = runner.step(state, tcfg)
     _check_step(jax_step, state_to_numpy(out), tree)
+
+
+def test_graphed_step_copies_every_read_leaf_each_call():
+    """A call copies in every leaf the step reads, also a tensor it was
+    given before, unchanged in identity and version counter (a write
+    through `.data` leaves the counter alone)."""
+    x, y = torch.zeros(3), torch.ones(3)
+    step = GraphedStep(lambda a: (a[0] + a[1], a[1]), (x, y), CPU, "test", "a")
+    assert torch.equal(step((x, y))[0], torch.ones(3))
+    version = x._version
+    x.data[0] = 5.0
+    assert x._version == version
+    assert step((x, y))[0].tolist() == [6.0, 1.0, 1.0]
+
+
+def test_graphed_step_unread_leaves_pass_through_and_raise_if_read():
+    """A leaf declared unread comes back as the caller's own tensor, and a
+    step that reads it raises with its path."""
+    x, y = torch.zeros(3), torch.ones(3)
+    step = GraphedStep(lambda a: (a[0] * 2, a[1]), (x, y), CPU, "test", "a",
+                       reads=lambda path: path != "a[1]")
+    out = step((x, y))
+    assert out[1] is y and torch.equal(out[0], torch.zeros(3))
+    reads_y = GraphedStep(lambda a: (a[0] + a[1], a[1]), (x, y), CPU, "test", "a",
+                          reads=lambda path: path != "a[1]")
+    with pytest.raises(RuntimeError, match=r"a\[1\]"):
+        reads_y((x, y))
 
 
 def test_local_bundle_adjust_early_exit_matches_jax(jax_map):

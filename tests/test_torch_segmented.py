@@ -38,6 +38,7 @@ from orb_slam2_ssd_semantic_tpu.tracking import scan_tracker as jst
 from orb_slam2_ssd_semantic_tpu.tracking import segmented as jseg
 from orb_slam2_ssd_semantic_tpu_torch.mapping import loop_closing as tlc
 from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import LocalMappingRunner
+from orb_slam2_ssd_semantic_tpu_torch.tracking.graphed_track import TrackStepRunner
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import empty_state as t_empty_state
 from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker as tst
 from orb_slam2_ssd_semantic_tpu_torch.tracking import segmented as tseg
@@ -199,7 +200,7 @@ def _port_run(mode, monkeypatch, capsys):
                              last_kp_point=None, velocity=None, frames_since_kf=0,
                              ref_kf_inliers=0, frame_idx=1, word_db=None, val_db=None,
                              cons_count=torch.zeros((F,), dtype=torch.int32),
-                             mapper=LocalMappingRunner(CPU))
+                             mapper=LocalMappingRunner(CPU), track=TrackStepRunner(CPU))
 
     def scan(carry, grays, depths, cfg, with_rel=False, **kw):
         s = (int(grays[0, 0, 0]) - 1) // S
@@ -322,7 +323,8 @@ def test_runner_hands_the_masks_to_every_segment(use_flow, use_geom, monkeypatch
                              last_kp_point=None, velocity=None, frames_since_kf=0,
                              ref_kf_inliers=0, frame_idx=1, word_db=None, val_db=None,
                              cons_count=torch.zeros((F,), dtype=torch.int32),
-                             mapper=LocalMappingRunner(CPU), geom_db="ring 0")
+                             mapper=LocalMappingRunner(CPU), track=TrackStepRunner(CPU),
+                             geom_db="ring 0")
 
     def scan(carry, grays, depths, cfg, with_rel=False, **kw):
         s = (int(grays[0, 0, 0]) - 1) // S

@@ -12,10 +12,29 @@ different orders, and local BA amplifies ulp-level differences over its
 Gauss-Newton iterations, but both must land on the same trajectory);
 the port's ATE against ground truth must stay under 1 cm, the tracker
 test's gate.
+
+The per-frame step (`fused_track_step`) and its CUDA-graph runner
+(`tracking/graphed_track.py::TrackStepRunner`): the port's step runs
+with every host read trapped and equals JAX's on the same numpy inputs
+(the JAX tracker's state before the last frame, and that frame) on three
+frames: as tracked (the motion model decides), with the predicted pose
+pushed 0.6 m sideways (the motion model finds nothing and the
+reference-keyframe fallback decides) and with the motion model's window
+cut to 0.08 px (the first window keeps under `min_matches_track` matches
+and the doubled-window retry decides): statuses and keyframe decisions equal,
+inlier and match counts within 1, poses within 1e-4 (extraction rounds
+a few pyramid pixels the other way, `tests/test_torch_divergence_7c.py`).
+`Tracker.process` runs the runner's CPU path, which must equal the
+eager step bit for bit on every frame of the port's run, leave what it
+returned alone at the next step, refuse arguments of other shapes
+or dtypes, and raise, naming the tensor, where the step reads a map
+tensor left out of its declared reads.
 """
 
 import dataclasses
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,9 +42,18 @@ import torch
 import orb_slam2_ssd_semantic_tpu.config as jconfig
 import orb_slam2_ssd_semantic_tpu_torch.config as tconfig
 from orb_slam2_ssd_semantic_tpu.io.synthetic import SyntheticSequence
+from orb_slam2_ssd_semantic_tpu.tracking import tracker as jtk
 from orb_slam2_ssd_semantic_tpu.tracking.tracker import Tracker as JTracker
 from orb_slam2_ssd_semantic_tpu_torch.eval.ate import evaluate_ate_xyz
+from orb_slam2_ssd_semantic_tpu_torch.frontend.extractor import Features as TFeatures
+from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import state_leaves
+from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import state_from_numpy
+from orb_slam2_ssd_semantic_tpu_torch.tracking import tracker as ttk
+from orb_slam2_ssd_semantic_tpu_torch.tracking import graphed_track
+from orb_slam2_ssd_semantic_tpu_torch.tracking.graphed_track import TrackStepRunner
 from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker as TTracker
+from orb_slam2_ssd_semantic_tpu_torch.utils.precision import highest_precision
+from _torch_host_reads import host_reads_trapped
 from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 N_FRAMES = 10
@@ -47,13 +75,50 @@ def small_config(mod):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def recorded():
+    """What `runs` records beside the runs: the JAX tracker's step inputs
+    before the last frame, and each step of the port's tracker through
+    its runner with the eager step on the same arguments."""
+    return {"steps": []}
+
+
+def _spy_on_runner(tracker, rec):
+    """Record every step the tracker's runner takes: its result, the eager
+    step's on the same arguments, and whether the frame and kp_point the
+    runner returned the step before are unchanged."""
+    runner = tracker.track_runner()
+    step = runner.step
+
+    def spy(*args, **kwargs):
+        out = step(*args, **kwargs)
+        with highest_precision():
+            eager = ttk.fused_track_step(*args, **kwargs)
+        kept = rec.get("kept")
+        if kept is not None:
+            rec["steps"][-1]["kept_unchanged"] = all(torch.equal(t, c) for t, c in kept)
+        rec["kept"] = [(t, t.clone()) for _, t in state_leaves((out[1], out[4]), "out")]
+        rec["steps"].append(dict(runner=out, eager=eager))
+        return out
+
+    runner.step = spy
+
+
+@pytest.fixture(scope="module")
+def runs(recorded):
     seq = SyntheticSequence(n_frames=N_FRAMES, cam=small_config(jconfig).camera)
     frames = [seq.gray_depth(i) for i in range(N_FRAMES)]
+    recorded["last_frame"] = frames[-1]
     out = {}
     for name, tracker in (("jax", JTracker(small_config(jconfig))),
                           ("torch", TTracker(small_config(tconfig), device="cpu"))):
+        if name == "torch":
+            _spy_on_runner(tracker, recorded)
         for i, (gray, depth) in enumerate(frames):
+            if name == "jax" and i == N_FRAMES - 1:
+                recorded["jax_inputs"] = jax.tree_util.tree_map(
+                    lambda x: np.array(x), (tracker.state, tracker.last_frame, tracker.last_T_cw,
+                                            tracker.last_kp_point, tracker.velocity)) + (
+                    tracker.frames_since_kf, tracker.ref_kf_inliers)
             tracker.process(gray, depth, float(seq.stamps[i]))
         out[name] = tracker
     return seq, out["jax"], out["torch"]
@@ -94,3 +159,141 @@ def test_port_trajectory_file(tmp_path, runs):
     assert len(stamps) == N_FRAMES
     np.testing.assert_allclose(np.linalg.norm(q, axis=1), 1.0, atol=1e-6)
     np.testing.assert_allclose(t, tt.camera_positions(), atol=1e-5)
+
+
+def _port_frame(f) -> ttk.Frame:
+    """A JAX `Frame` of numpy arrays as the port's."""
+    fe = f.feats
+    feats = TFeatures(uv=torch.from_numpy(fe.uv), level=torch.from_numpy(fe.level.astype(np.int64)),
+                      angle=torch.from_numpy(fe.angle), score=torch.from_numpy(fe.score),
+                      desc=torch.from_numpy(fe.desc.view(np.int32)),
+                      valid=torch.from_numpy(fe.valid))
+    return ttk.Frame(feats, torch.from_numpy(f.kp_depth), torch.from_numpy(f.obs_uvr),
+                     torch.from_numpy(f.is_stereo))
+
+
+RETRY_RADIUS = 0.08  # px: 16 matches in the first window at this frame, 50 in the doubled one
+
+
+def _cut_radius(cfg):
+    return cfg.replace(matcher=dataclasses.replace(cfg.matcher, mm_search_radius=RETRY_RADIUS))
+
+
+def _pushed(velocity: np.ndarray, metres: float) -> np.ndarray:
+    out = velocity.copy()
+    out[0, 3] += metres
+    return out
+
+
+@pytest.fixture(scope="module")
+def step_cases(runs, recorded):
+    """{case: (JAX's packed stats, the port's, the port's window match
+    counts)} for the last frame from the JAX tracker's inputs before it,
+    as tracked ("ok"), with the velocity pushed 0.6 m ("fallback") and
+    with the motion model's window cut ("retry"). The port's step runs
+    with every host read trapped; the match counts are read after it."""
+    jstate, jframe, last_T_cw, last_kp_point, velocity, since_kf, ref_inl = recorded["jax_inputs"]
+    gray, depth = recorded["last_frame"]
+    counts = []
+    match = ttk.match_ops.match_by_window
+
+    def counted(*args, **kwargs):
+        m = match(*args, **kwargs)
+        counts.append(m.valid.sum())
+        return m
+
+    out = {}
+    for case, vel, cut in (("ok", velocity, False), ("fallback", _pushed(velocity, 0.6), False),
+                           ("retry", velocity, True)):
+        jcfg, tcfg = small_config(jconfig), small_config(tconfig)
+        if cut:
+            jcfg, tcfg = _cut_radius(jcfg), _cut_radius(tcfg)
+        j = jax.tree_util.tree_map(jnp.asarray, (jstate, jframe, last_T_cw, last_kp_point))
+        packed_j = jtk.fused_track_step(
+            j[0], jnp.asarray(gray), jnp.asarray(depth), j[1], j[2], j[3], jnp.asarray(vel),
+            jnp.int32(since_kf), jnp.int32(ref_inl), jcfg, static_mask=None, use_mask=False,
+            feats=None, use_feats=False)[-1]
+        t_args = (state_from_numpy(_tree_of(jstate), "cpu"), torch.from_numpy(gray),
+                  torch.from_numpy(depth), _port_frame(jframe), torch.from_numpy(last_T_cw),
+                  torch.from_numpy(last_kp_point.astype(np.int64)), torch.from_numpy(vel),
+                  torch.tensor(since_kf), torch.tensor(ref_inl), tcfg)
+        counts.clear()
+        ttk.match_ops.match_by_window = counted
+        try:
+            with highest_precision(), host_reads_trapped():
+                packed_t = ttk.fused_track_step(*t_args)[-1]
+        finally:
+            ttk.match_ops.match_by_window = match
+        out[case] = (np.asarray(packed_j), packed_t.numpy(), [int(c) for c in counts])
+    return out
+
+
+def _tree_of(state):
+    if hasattr(state, "_asdict"):
+        return {k: _tree_of(v) for k, v in state._asdict().items()}
+    return np.asarray(state)
+
+
+@pytest.mark.parametrize("case", ["ok", "fallback", "retry"])
+def test_track_step_matches_jax_with_host_reads_trapped(step_cases, case):
+    pj, pt, counts = step_cases[case]
+    tcfg = small_config(tconfig)
+    np.testing.assert_array_equal(pt[16:18], pj[16:18])  # status, need_kf
+    np.testing.assert_allclose(pt[18:], pj[18:], atol=1, rtol=0)  # inliers, matches, mm inliers
+    np.testing.assert_allclose(pt[:16], pj[:16], atol=1e-4, rtol=0)
+    assert pj[16] == 0, "the frame did not track: vacuous"
+    first, doubled = counts[:2]
+    ok_mm_inliers = pj[20] >= tcfg.tracking.min_inliers_track
+    if case == "ok":
+        assert ok_mm_inliers and first >= tcfg.tracking.min_matches_track
+    elif case == "fallback":
+        assert not ok_mm_inliers, "the motion model held: the fallback did not decide"
+    else:
+        assert first < tcfg.tracking.min_matches_track <= doubled, counts
+
+
+def test_track_runner_equals_the_eager_step(runs, recorded):
+    """Every step of the port's run through the runner's CPU path equals
+    the eager step on the same arguments, bit for bit on every tensor."""
+    steps = recorded["steps"]
+    assert len(steps) == N_FRAMES - 1
+    for i, s in enumerate(steps):
+        got, want = state_leaves(s["runner"], "out"), state_leaves(s["eager"], "out")
+        for (path, x), (_, y) in zip(got, want, strict=True):
+            assert x.dtype == y.dtype and torch.equal(x, y), (i, path)
+
+
+def test_track_runner_leaves_returned_frames_alone(runs, recorded):
+    """The frame and kp_point a step returned are unchanged after the next
+    step, which overwrote the runner's output buffers."""
+    flags = [s["kept_unchanged"] for s in recorded["steps"][:-1]]
+    assert len(flags) == N_FRAMES - 2 and all(flags), flags
+
+
+def test_track_runner_refuses_another_shape_or_dtype(runs):
+    _, _, tt = runs
+    cfg = tt.cfg
+    runner = TrackStepRunner("cpu")
+    gray = torch.zeros((cfg.camera.height, cfg.camera.width), dtype=torch.uint8)
+    depth = torch.zeros((cfg.camera.height, cfg.camera.width), dtype=torch.uint16)
+    args = [tt.state, gray, depth, tt.last_frame, tt.last_T_cw, tt.last_kp_point, tt.velocity,
+            0, 1, cfg]
+    runner.capture(*args)
+    assert runner.ready(cfg) and not runner.ready(cfg, static_mask=gray > 0)
+    for i, bad, path in ((1, gray[:-1], "step.gray"), (6, tt.velocity.double(), "step.velocity"),
+                         (7, torch.zeros((), dtype=torch.int32), "step.frames_since_kf")):
+        with pytest.raises(ValueError, match=path.replace(".", r"\.")):
+            runner.step(*args[:i], bad, *args[i + 1:])
+
+
+def test_track_runner_raises_where_the_step_reads_an_undeclared_leaf(runs, monkeypatch):
+    """A map tensor left out of `STATE_READS` stands in as `Unread`: the
+    step raises at its first read of it, naming it, at the capture."""
+    _, _, tt = runs
+    monkeypatch.setattr(graphed_track, "STATE_READS", graphed_track.STATE_READS - {"points.pos"})
+    cfg = tt.cfg
+    gray = torch.zeros((cfg.camera.height, cfg.camera.width), dtype=torch.uint8)
+    depth = torch.zeros((cfg.camera.height, cfg.camera.width), dtype=torch.uint16)
+    with pytest.raises(RuntimeError, match=r"state\.points\.pos"):
+        TrackStepRunner("cpu").step(tt.state, gray, depth, tt.last_frame, tt.last_T_cw,
+                                    tt.last_kp_point, tt.velocity, 0, 1, cfg)
