@@ -132,7 +132,7 @@ phase 14 phase 10's views and phase 7's map.
         as often as the window's launches count them;
      b. `track_sequence_segmented` on `tests/test_segmented.py`'s circuit
         at 640x480 (145 frames, 2.35 laps, 1% depth noise, segments of
-        36), cut to its first three segments (109 frames), at `bench.py`'s
+        36), all four segments (145 frames), at `bench.py`'s
         widths with the named vocabulary, three
         times: a verifier whose estimates agree (D = 0) with the real
         `_correct` (at least 2 loop events and 1 correction), the test's
@@ -140,7 +140,31 @@ phase 14 phase 10's views and phase 7's map.
         `LoopCloser`; every frame `OK` and resolved ATE under 0.15 m in
         each; each real correction, applied again to a CPU copy of the
         state it met, resolves the frames tracked before it to the same
-        ATE within 2 mm;
+        ATE within 2 mm; frames/s, `scan_s` (the fetches' wait),
+        `correct_s`, corrections and re-dispatches (the runner queues
+        segment s+1 before it reads segment s, and again after a
+        correction), and the peak memory with two segments in flight;
+     c. the scan without a host read: phase 4's frames 28-63 (36 frames,
+        keyframes at 31 and 62, local mapping at 62) as one segment under
+        the profiler, from a carry that tracked frames 1-27, with the
+        segmented runner's fetch: exactly one device-to-host copy and one
+        wait (the fetch) in the trace; each frame two graph launches (the
+        tracking step, the keyframe branch under conditional nodes); per
+        frame the branch's kernels, and B1's runs traced in each launch:
+        3 in every tracking replay, 20 in the branch only where local
+        mapping ran (a keyframe that made 3 or more); graph launches,
+        copies, kernels, device busy ms and host dispatch ms a frame; the
+        branch graph's capture ms, pools (their segments) and first-replay
+        upload; the bodies' counters on the card equal to the keyframes
+        and local mappings; the same segment untraced before and after the
+        trace, each runner's step call and each graph's `replay()` alone
+        timed on the host. Run twice: in the script's own process (the
+        trace's B1 and its ties logged, not held: after earlier profiler
+        sessions that trace has held kernels of other launches) and in a
+        process of its own (held). 8a and 8b also hold the bodies'
+        counters: to the scan's insertions and local mappings, and in
+        each segmented run to the frames dispatched and the insertions
+        the final map counts;
   9. the dynamic masks and the device renderer (counters zeroed before,
      read after; B1's launches here are `launches_dynamic`):
      a. `io/device_render.render_frames` on the card: `bench.py`'s walker
@@ -313,9 +337,14 @@ replays the tracking step's, every local-mapping call local mapping's)
 runs its capture's launches without calling a wrapper. A phase's
 `launches` are the runs on the card: the wrappers' calls outside a
 capture plus each replay's captured launches (`_kernel_runs`), with
-`launches_wrapper_calls` and `launches_replayed` beside them. Phases
-4, 4b and 8a hold these counts to the card's trace, and every phase that
-tracks frames requires B1 in a replay.
+`launches_wrapper_calls`, `launches_replayed` and `launches_in_bodies`
+beside them. Launches captured inside a conditional body (the scan's
+keyframe branch, `mapping/graph_cond.py`) run only where the body's
+predicate holds on the card: each body bumps a counter on the card
+(`GraphedStep.body_runs`), and its launches count once a run
+(`launches_in_bodies`). Phases 4, 4b, 8a and 8c hold these counts to the
+card's trace, 8a-8c the bodies' runs to the frames that took them, and
+every phase that tracks frames requires B1 in a replay.
 
 Without a CUDA card it exits non-zero and prints no result.
 
@@ -343,6 +372,7 @@ import sys
 import tempfile
 import time
 import warnings
+import weakref
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -590,10 +620,11 @@ LOOP_RANGES = ("loop.detect", "loop.sim3", "loop.confirm", "loop.pose_graph", "l
 # `tests/test_segmented.py`'s circuit at 640x480, `bench.py`'s ATE gate.
 SCAN_POS_TOL, AGAIN_FRAMES = 1e-4, 64
 SEG_FRAMES, SEG_LAPS, SEG_NOISE, SEG_LEN = 145, 2.35, 0.01, 36
-# The runs take the circuit's first three full segments (cut to fit the
-# script's time): the segments, the loop events at frames 80-108
-# and the correction at 86 are those of the whole circuit's first three.
-SEG_RUN_FRAMES = 1 + 3 * SEG_LEN
+# The runs take the whole circuit, four segments.
+SEG_RUN_FRAMES = 1 + 4 * SEG_LEN
+# 8c: one segment of phase 4's frames traced whole: keyframes at 31 (the
+# second: insertion alone) and 62 (the third: local mapping).
+SCAN_TRACE_FRAMES = range(28, 28 + SEG_LEN)
 # Each real correction of run 1 is applied again to a CPU copy of the
 # state it met, through the same code: the frames tracked before it (up to
 # the end of its segment) must then resolve to the same ATE within
@@ -819,7 +850,12 @@ def _reset_counts() -> None:
     cuda_match.window_match.launches = 0
     cuda_solve.spd_solve.launches = 0
     cuda_build.captured.clear()
+    cuda_build.conditional.clear()
     _REPLAYED.update(dict.fromkeys(_REPLAYED, 0))
+    # A dead graph runs no body again; a live one counts from 0.
+    _BODIES[:] = [b for b in _BODIES if b[0]() is not None]
+    for _, _, runs in _BODIES:
+        runs.zero_()
 
 
 def _counts() -> dict:
@@ -829,8 +865,9 @@ def _counts() -> dict:
 
 def _captured_counts() -> dict:
     """The wrappers' launches into a CUDA graph being captured since the
-    last `_reset_counts`."""
-    return {k: cuda_build.captured.get(k, 0) for k in ("window_match", "spd_solve")}
+    last `_reset_counts`, those into its conditional bodies included."""
+    return {k: cuda_build.captured.get(k, 0) + cuda_build.conditional.get(k, 0)
+            for k in ("window_match", "spd_solve")}
 
 
 # B1's and B2's kernels by the names the card's trace gives them; a call of
@@ -873,8 +910,10 @@ def _count_replays() -> None:
     """Make every `GraphedStep` (`mapping/graphed_step.py`: the tracking and
     local-mapping graphs of every tracker, scan and segmented run) add its
     captured launches to `_REPLAYED` at each replay, the capture's own
-    upload replay included. Phases 4, 4b and 8a hold this count to the
-    card's trace."""
+    upload replay included, and register the counters of its conditional
+    bodies, whose launches run only where their predicate holds
+    (`_body_runs`). Phases 4, 4b and 8a hold these counts to the card's
+    trace."""
     def tallied(method):
         def run(self, *args, **kwargs):
             before = getattr(self, "replays", 0)
@@ -884,15 +923,59 @@ def _count_replays() -> None:
             return out
         return run
 
-    GraphedStep.__init__ = tallied(GraphedStep.__init__)
+    def registered(init):
+        def make(self, *args, **kwargs):
+            init(self, *args, **kwargs)
+            if self.bodies:
+                _BODIES.append((weakref.ref(self), self.bodies, self.body_runs))
+        return make
+
+    GraphedStep.__init__ = registered(tallied(GraphedStep.__init__))
     GraphedStep.__call__ = tallied(GraphedStep.__call__)
+
+
+# The conditional bodies of the graphs captured since `_count_replays`:
+# (the graph, weakly; its bodies' records; their run counter on the card,
+# which outlives the graph until the next `_reset_counts`).
+_BODIES: list = []
+
+
+def _body_runs() -> list:
+    """[(body record, runs since the last `_reset_counts`)] of every
+    registered graph's conditional bodies: a read of the card's counters
+    (call it outside a profiled window)."""
+    if not _BODIES:
+        return []
+    runs = torch.cat([r for _, _, r in _BODIES]).tolist()
+    out, i = [], 0
+    for _, bodies, r in _BODIES:
+        out += list(zip(bodies, runs[i:i + len(bodies)]))
+        i += r.numel()
+    return out
+
+
+def _body_totals() -> dict:
+    """Runs of the registered bodies since the last `_reset_counts`, summed
+    by kind: "d<depth>_<taken on>" ("d0_True": the outer branch taken,
+    "d1_True": the nested one)."""
+    out = {}
+    for body, n in _body_runs():
+        key = f"d{body['depth']}_{body['taken_on']}"
+        out[key] = out.get(key, 0) + n
+    return out
 
 
 def _tally() -> dict:
     """B1's and B2's counts since the last `_reset_counts`: the wrappers'
-    calls, the launches those calls made into graphs being captured, and
-    the launches that graph replays ran."""
-    return dict(wrapper=_counts(), captured=_captured_counts(), replayed=dict(_REPLAYED))
+    calls, the launches those calls made into graphs being captured, the
+    launches that graph replays ran outside conditional bodies, and those
+    that the bodies' runs ran."""
+    bodies = dict.fromkeys(_REPLAYED, 0)
+    for body, n in _body_runs():
+        for k, c in body["kernels"].items():
+            bodies[k] += c * n
+    return dict(wrapper=_counts(), captured=_captured_counts(), replayed=dict(_REPLAYED),
+                bodies=bodies)
 
 
 def _since(before: dict) -> dict:
@@ -904,9 +987,11 @@ def _since(before: dict) -> dict:
 def _kernel_runs(tally: dict | None = None) -> dict:
     """B1's and B2's launches on the card in `tally` (by default all since
     the last `_reset_counts`): the wrappers' calls outside a capture (a
-    capture records its launches and runs none) and the replays' runs."""
+    capture records its launches and runs none) and the replays' runs,
+    in conditional bodies included."""
     t = tally or _tally()
-    return {k: t["wrapper"][k] - t["captured"][k] + t["replayed"][k] for k in t["wrapper"]}
+    return {k: t["wrapper"][k] - t["captured"][k] + t["replayed"][k] + t["bodies"][k]
+            for k in t["wrapper"]}
 
 
 def _path_launches(label: str, dev) -> dict:
@@ -918,7 +1003,7 @@ def _path_launches(label: str, dev) -> dict:
     if dev.type == "cuda" and t["replayed"]["window_match"] == 0:
         raise AssertionError(f"{label} never ran the window matcher in a graph's replay: {t}")
     return dict(launches=_kernel_runs(t), launches_wrapper_calls=t["wrapper"],
-                launches_replayed=t["replayed"])
+                launches_replayed=t["replayed"], launches_in_bodies=t["bodies"])
 
 
 # ---- phase 1 ---------------------------------------------------------------
@@ -1341,7 +1426,8 @@ def main_path_config() -> SlamConfig:
 
 # The port's host ranges (`record_function`): the trace also draws each on
 # the device's timeline, which is no kernel.
-_HOST_RANGES = ("track", "track.capture", "local_mapping", "local_mapping.capture")
+_HOST_RANGES = ("scan.segment", "track", "track.capture", "keyframe.insert", "local_mapping",
+                "local_mapping.capture")
 
 
 def _device_breakdown(prof, n_frames: int, frame_ms: float) -> dict:
@@ -1426,11 +1512,11 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
         for i, (gray, depth) in enumerate(frames):
             current["frame"] = i
             if len(profiled) and i == profiled.start:
-                prof.start()
                 window_before = _tally()
+                prof.start()
             if card and i == PROFILE_KEYFRAME:
-                prof_kf.start()
                 kf_before = _tally()
+                prof_kf.start()
             t = time.perf_counter()
             try:
                 poses.append(tracker.process(gray, depth, float(seq.stamps[i])))
@@ -1478,13 +1564,18 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
     _log("main path stages (Tracker.metrics, host clock):\n" + tracker.metrics.report())
     if card:
         res["capture"] = _capture_stats(tracker.local_mapper(), cfg)
+        res["insert_capture"] = {
+            name: {k: v / 2**20 if k == "pool_bytes" else v
+                   for k, v in tracker.insert_runner().stats(cfg, spawn_all).items()}
+            for name, spawn_all in (("first", True), ("keyframe", False))}
         track_graph = tracker.track_runner().stats(cfg)
         res["track_capture"] = dict(capture_ms=track_graph["capture_ms"],
                                     pool_mib=track_graph["pool_bytes"] / 2**20,
                                     replays=track_graph["replays"],
                                     captured=track_graph["captured"])
         _log("main path local-mapping graph: " + json.dumps(res["capture"])
-             + "; tracking graph: " + json.dumps(res["track_capture"]))
+             + "; tracking graph: " + json.dumps(res["track_capture"])
+             + "; insertion graphs (pool_bytes in MiB): " + json.dumps(res["insert_capture"]))
     if len(profiled):
         breakdown = _device_breakdown(prof, len(profiled), res["median_frame_ms"])
         breakdown.update(launches_python=window_python, launches_replayed=window_graphs,
@@ -1496,6 +1587,7 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
     if card:
         kf = dict(frame=PROFILE_KEYFRAME, runtime_calls=_runtime_in(prof_kf),
                   local_mapping=_runtime_in(prof_kf, "local_mapping"),
+                  keyframe_insert=_runtime_in(prof_kf, "keyframe.insert"),
                   launches_python=kf_python, launches_replayed=kf_graphs,
                   traced=_traced_launches(prof_kf))
         res["keyframe_profile"] = kf
@@ -1510,6 +1602,14 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
         if waits:
             raise AssertionError(f"local mapping waited on the card at frame {PROFILE_KEYFRAME}: "
                                  f"{waits}")
+        # Insertion is one replay of its graph, with no wait (the eager
+        # insertion made about 600 kernel launches here).
+        ins = kf["keyframe_insert"]
+        _log(f"keyframe frame {PROFILE_KEYFRAME}: insertion {json.dumps(ins)}; the frame "
+             f"{json.dumps(kf['runtime_calls'])}")
+        if ins.get("cudaGraphLaunch") != 1 or any(k in _SYNC_CALLS for k in ins):
+            raise AssertionError(f"frame {PROFILE_KEYFRAME} inserted its keyframe with {ins}, not "
+                                 "one graph launch and no wait")
         _check_traced(f"frame {PROFILE_KEYFRAME}", kf["traced"],
                       {k: kf_python[k] + kf_graphs[k] for k in kf_python})
         if captured["window_match"] == 0:
@@ -1708,7 +1808,8 @@ def run_b2_path(tracker, dev) -> dict:
     return res
 
 
-_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+               "cudaMemcpy")
 
 
 def _runtime_in(prof, range_name: str | None = None) -> dict:
@@ -2558,10 +2659,12 @@ def run_scan_path(dev, main_res: dict, card: str) -> dict:
     sync()
     wall_s = time.perf_counter() - t
     counts = _path_launches("8a: the scan", dev)
+    body_runs = _body_totals()
     runs = counts["launches"]
     status_scan = [("OK", "WEAK", "LOST")[int(c)] for c in stats[:, 0]]
     status_proc = [st["status"] for st in tracker.stats[1:]]
     kf_scan = _kf_frames(stats[:, 2])
+    lm_scan = [f for f in kf_scan if stats[f - 1, 2] >= 3]
     kf_proc = [i for i in range(1, len(tracker.stats))
                if tracker.stats[i]["kfs"] != tracker.stats[i - 1]["kfs"]]
     pos_diff = np.linalg.norm(_centres(T_all) - _centres(poses), axis=1)
@@ -2590,17 +2693,19 @@ def run_scan_path(dev, main_res: dict, card: str) -> dict:
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA]
                                   ) if len(profiled) else None
-    frame_ms = []
+    frame_ms, dispatch_ms = [], []
     for i in range(1, n_replay):
         if i == profiled.start:
-            prof.start()
             window_before = _tally()
+            prof.start()
         sync()
         t = time.perf_counter()
         carry, *_ = scan_tracker.track_sequence_scan(carry, g_dev[i:i + 1], d_dev[i:i + 1], cfg)
+        t_dispatch = time.perf_counter()
         sync()
         if i not in profiled:
             frame_ms.append((time.perf_counter() - t) * 1e3)
+            dispatch_ms.append((t_dispatch - t) * 1e3)
         if len(profiled) and i == profiled[-1]:
             prof.stop()
             window_runs = _kernel_runs(_since(window_before))
@@ -2608,10 +2713,13 @@ def run_scan_path(dev, main_res: dict, card: str) -> dict:
     res = dict(frames=n, wall_s=wall_s, mean_frame_ms=wall_s * 1e3 / (n - 1),
                process_mean_frame_ms=main_res["mean_frame_ms"],
                process_again_mean_frame_ms=statistics.mean(again_ms[1:]), **counts,
-               keyframe_frames=kf_scan, max_position_diff_m=pos_err,
+               keyframe_frames=kf_scan, local_mapping_frames=lm_scan,
+               inserted=int(state.next_uid) - 1, body_runs=body_runs,
+               max_position_diff_m=pos_err,
                max_position_diff_frame=int(np.argmax(pos_diff)), process_spread_m=spread,
                position_limit_m=SCAN_POS_TOL, ate_m=ate,
                replay_frames=len(frame_ms), replay_median_frame_ms=statistics.median(frame_ms),
+               replay_median_dispatch_ms=statistics.median(dispatch_ms),
                process_median_frame_ms_same_frames=statistics.median(proc_ms),
                process_again_median_frame_ms_same_frames=statistics.median(
                    again_ms[1:1 + len(frame_ms)]),
@@ -2634,10 +2742,250 @@ def run_scan_path(dev, main_res: dict, card: str) -> dict:
                              f"{SCAN_POS_TOL:.0e})")
     if not ate < 0.01:
         raise AssertionError(f"8a: scan ATE {ate:.5f} m >= 0.01 m")
+    if dev.type == "cuda":
+        _check_bodies("8a", body_runs, n - 1, res["inserted"], len(lm_scan))
     if len(profiled):
         _check_traced(f"8a: the scan's frames {profiled.start}-{profiled[-1]}",
                       res["profile"]["traced"], window_runs)
     return res
+
+
+def _by_graph_launch(events, device: list) -> list:
+    """The events of `device` that each `cudaGraphLaunch` in `events` ran,
+    in launch order, matched by the launch's correlation id."""
+    launches = sorted((e for e in events if e.device_type() == torch.autograd.DeviceType.CPU
+                       and e.name() == "cudaGraphLaunch"), key=lambda e: e.start_ns())
+    for key in ("correlation_id", "linked_correlation_id"):
+        by_id = {}
+        for e in device:
+            by_id.setdefault(getattr(e, key)(), []).append(e)
+        out = [by_id.get(e.correlation_id(), []) for e in launches]
+        if sum(map(len, out)) >= len(device) // 2:
+            return out
+    raise AssertionError(f"8c: the trace ties no device event to its graph launch "
+                         f"({len(launches)} launches, {len(device)} device events)")
+
+
+def _bodies_by_kind(bodies: list, runs: list) -> dict:
+    """A graph's body runs summed by kind, as `_body_totals` names them."""
+    out = {}
+    for body, n in zip(bodies, runs):
+        key = f"d{body['depth']}_{body['taken_on']}"
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def _check_bodies(label: str, runs: dict, frames: int, inserted: int, mapped: int) -> None:
+    """Raise unless the keyframe branch's conditional bodies ran as the
+    frames took them, by their counters on the card: the keyframe body on
+    the `inserted` of `frames` frames and the other outer body on the
+    rest; inside it local mapping's body on `mapped` of the insertions and
+    its other body on the rest."""
+    want = {"d0_True": inserted, "d0_False": frames - inserted, "d1_True": mapped,
+            "d1_False": inserted - mapped}
+    if runs != want:
+        raise AssertionError(f"{label}: the branch's bodies ran {runs}, {want} expected")
+
+
+def _timed_calls(runner, out: list) -> None:
+    """Make `runner.step` (on this instance only) append each call's host ms
+    to `out`; `del runner.step` undoes it."""
+    step = runner.step
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return step(*args, **kwargs)
+        finally:
+            out.append((time.perf_counter() - t) * 1e3)
+
+    runner.step = timed
+
+
+def check_scan_trace(dev, rendered, card: str, fresh: bool = True) -> dict:
+    """8c: phase 4's frames SCAN_TRACE_FRAMES as one segment under the
+    profiler (`track_sequence_scan` with `with_rel`, then the segmented
+    runner's pack and fetch), from a carry that tracked the frames before
+    them, with the same segment untraced before and after the trace, each
+    runner's step call timed and each graph's `replay()` alone. Holds the trace to one
+    device-to-host copy and one wait, and the branch's conditional bodies
+    by their counters to the frames that took them. In a process of its
+    own (`fresh`, `run_scan_trace`) also two graph launches a frame and
+    B1's traced runs: 3 in each tracking replay, 20 in the keyframe branch
+    exactly where local mapping ran. In the script's process, after the
+    profiler sessions of the phases before, the trace's B1 count and its
+    ties of kernels to launches are logged, not held."""
+    from orb_slam2_ssd_semantic_tpu_torch.tracking import segmented as seg_mod
+
+    _, frames, *_ = rendered
+    cfg = main_path_config()
+    lo, hi = SCAN_TRACE_FRAMES.start, SCAN_TRACE_FRAMES.stop
+    g = torch.from_numpy(np.stack([a for a, _ in frames[:hi]])).to(dev)
+    d = torch.from_numpy(np.stack([b for _, b in frames[:hi]])).to(dev)
+    carry = scan_tracker.init_scan(map_state.empty_state(cfg, dev), g[0], d[0], cfg)
+    carry, *_ = scan_tracker.track_sequence_scan(carry, g[1:lo], d[1:lo], cfg, with_rel=True)
+    n_kfs_before = int(carry.state.n_kfs)
+    branch_graph = carry.branch.graphs()[-1]
+    branch = carry.branch.stats(cfg, None, False, True)
+    n_bodies = len(branch_graph.bodies)
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated(dev)
+    n = hi - lo
+
+    def segment():
+        t0 = time.perf_counter()
+        out, T, stats, rel, uid = scan_tracker.track_sequence_scan(carry, g[lo:hi], d[lo:hi],
+                                                                   cfg, with_rel=True)
+        t_dispatch = time.perf_counter() - t0
+        kfs = out.state.kfs
+        packed = seg_mod._fetch(*seg_mod._start_fetch(seg_mod._pack_segment(
+            T, stats, rel, uid, kfs.uid, kfs.valid, kfs.frame_id)))
+        return packed, t_dispatch * 1e3 / n, (time.perf_counter() - t0) * 1e3 / n
+
+    runners = {"track": carry.track, "branch": carry.branch}
+
+    def timed_segment() -> dict:
+        """The segment untraced, each runner's step call timed; then each
+        graph's `replay()` alone, the card idle before each."""
+        step_ms = {"track": [], "branch": []}
+        for name, runner in runners.items():
+            _timed_calls(runner, step_ms[name])
+        try:
+            _, dispatch_ms, wall_ms = segment()
+        finally:
+            for runner in runners.values():
+                del runner.step
+        replay_ms = {}
+        for name, runner in runners.items():
+            graph, ms = runner.graphs()[-1].graph, []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                graph.replay()
+                ms.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            replay_ms[name] = statistics.median(ms)
+        return dict(host_dispatch_ms_per_frame=dispatch_ms, wall_ms_per_frame=wall_ms,
+                    step_host_ms={f"{k}_median": statistics.median(v) for k, v in step_ms.items()}
+                    | {f"{k}_max": max(v) for k, v in step_ms.items()},
+                    replay_alone_host_ms=replay_ms)
+
+    # Timed untraced first: once a profiler session has run in a process,
+    # a graph's launch costs the host milliseconds more (`replay_alone_host_ms`
+    # against `untraced_after_trace`'s), so that timing is kept apart.
+    untraced = timed_segment()
+    branch_graph.body_runs.zero_()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    with torch.profiler.record_function("scan.segment"):
+        packed, traced_dispatch_ms, traced_wall_ms = segment()
+    prof.stop()
+    body_runs = _bodies_by_kind(branch_graph.bodies,
+                                branch_graph.body_runs[:n_bodies].tolist())
+    after_trace = timed_segment()
+    n_kfs = packed[n * 16 + 2:n * 20:4].astype(np.int64)
+    grew = np.diff(np.concatenate([[n_kfs_before], n_kfs])) > 0
+    kf_frames = [lo + int(i) for i in np.nonzero(grew)[0]]
+    lm_frames = [lo + int(i) for i in np.nonzero(grew & (n_kfs >= 3))[0]]
+
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # Waits from the segment's dispatch to its fetch's end (the profiler's
+    # own stop synchronizes after), and the device's work from then on.
+    a, b = next((e.start_ns(), e.end_ns()) for e in events if e.name() == "scan.segment"
+                and e.device_type() == torch.autograd.DeviceType.CPU)
+    waits = {}
+    for e in events:
+        if e.name() in _SYNC_CALLS and a <= e.start_ns() <= b:
+            waits[e.name()] = waits.get(e.name(), 0) + 1
+    device = [e for e in events if e.device_type() == cuda and e.name() not in _HOST_RANGES
+              and e.start_ns() >= a]
+    copies = {}
+    for e in device:
+        if e.name().startswith("Memcpy"):
+            kind = e.name().split()[1]
+            copies[kind] = copies.get(kind, 0) + 1
+    b1 = _TRACED_KERNELS["window_match"]
+
+    def kernels(evs):
+        return [e for e in evs if not e.name().startswith(("Memcpy", "Memset"))]
+
+    per_frame, tie_error = [], None
+    try:
+        per_launch = _by_graph_launch(events, device)
+        if len(per_launch) != 2 * n:
+            raise AssertionError(f"8c: {len(per_launch)} graph launches for {n} frames, not two "
+                                 "a frame")
+        for i in range(n):
+            track, br = per_launch[2 * i], per_launch[2 * i + 1]
+            per_frame.append(dict(
+                frame=lo + i, track_kernels=len(kernels(track)),
+                track_b1=sum(1 for e in track if b1 in e.name()),
+                branch_kernels=len(kernels(br)), branch_b1=sum(1 for e in br if b1 in e.name()),
+                branch_ms=sum(e.duration_ns() for e in kernels(br)) / 1e6))
+    except AssertionError as e:
+        if fresh:
+            raise
+        tie_error = str(e)
+    runtime = _runtime_in(prof)
+    traced = {key: sum(1 for e in device if name in e.name())
+              for key, name in _TRACED_KERNELS.items()}
+    bad = [f for f in per_frame if f["track_b1"] != 3
+           or f["branch_b1"] != (20 if f["frame"] in lm_frames else 0)]
+    want = 3 * n + 20 * len(lm_frames)
+    res = dict(
+        fresh_process=fresh, frames=[lo, hi - 1], keyframe_frames=kf_frames,
+        local_mapping_frames=lm_frames, body_runs=body_runs, waits=waits, device_copies=copies,
+        graph_launches_per_frame=runtime.get("cudaGraphLaunch", 0) / n,
+        copies_per_frame=runtime.get("cudaMemcpyAsync", 0) / n,
+        kernel_launches_per_frame=runtime.get("cudaLaunchKernel", 0) / n,
+        kernels_per_frame=len(kernels(device)) / n,
+        device_busy_ms_per_frame=sum(e.duration_ns() for e in kernels(device)) / 1e6 / n,
+        **untraced, untraced_after_trace=after_trace,
+        traced_host_dispatch_ms_per_frame=traced_dispatch_ms,
+        traced_wall_ms_per_frame=traced_wall_ms, traced=traced, traced_b1_expected=want,
+        frames_off_b1_count=[f["frame"] for f in bad], tie_error=tie_error,
+        memory_growth_mib=(torch.cuda.memory_allocated(dev) - mem_before) / 2**20,
+        branch_graph=dict(capture_ms=branch["capture_ms"],
+                          pool_mib=branch["pool_bytes"] / 2**20,
+                          upload_ms=branch["upload_ms"], conditional=branch["conditional"],
+                          captured=branch["captured"], bodies=branch["bodies"]),
+        per_frame=[f for f in per_frame if f["frame"] in kf_frames or f["frame"] in (lo, hi - 1)],
+        branch_kernels_not_keyframe=sorted({f["branch_kernels"] for f in per_frame
+                                            if f["frame"] not in kf_frames}))
+    where = "in a process of its own" if fresh else "in the script's process"
+    _log(f"8c the scan's segment traced whole, {where}: " + json.dumps(res) + f"; card: {card}")
+    if waits != {"cudaEventSynchronize": 1} or copies.get("DtoH") != 1 or copies.get("HtoD"):
+        raise AssertionError(f"8c: the segment waited {waits} and copied {copies}, not one wait "
+                             "and one device-to-host copy (the fetch)")
+    if len(kf_frames) < 2 or not lm_frames:
+        raise AssertionError(f"8c: keyframes at {kf_frames}, local mapping at {lm_frames}: "
+                             "vacuous")
+    _check_bodies(f"8c {where}", body_runs, n, len(kf_frames), len(lm_frames))
+    if not fresh:
+        return res
+    if bad:
+        raise AssertionError(f"8c: B1 ran off its count in {bad}")
+    if traced["window_match"] != want or traced["window_match_merge"] != want:
+        raise AssertionError(f"8c: the trace ran B1 {traced}, {want} expected")
+    if len(res["branch_kernels_not_keyframe"]) != 1:
+        raise AssertionError(f"8c: the branch ran {res['branch_kernels_not_keyframe']} kernels "
+                             "on frames without a keyframe: one count expected")
+    return res
+
+
+def _scan_trace_child(frames, card: str) -> dict:
+    return check_scan_trace(torch.device("cuda"), (None, frames), card)
+
+
+def run_scan_trace(rendered, card: str) -> dict:
+    """8c in a process of its own: after the profiler sessions of the
+    phases before, the script's own process traced kernels that no launch
+    of this segment ran (`check_scan_trace(..., fresh=False)` logs how
+    many); a fresh process traces cleanly."""
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_scan_trace_child, (rendered[1][:SCAN_TRACE_FRAMES.stop], card))
 
 
 def bench_config(vocabulary_path, cam: CameraConfig | None = None) -> SlamConfig:
@@ -2739,6 +3087,23 @@ def _correction_effect(res, closer: AgreeingCloser, gt: np.ndarray) -> list:
     return out
 
 
+def _check_segmented_bodies(name: str, r: dict) -> None:
+    """Raise unless one 8b run's keyframe-branch bodies, by their counters
+    on the card, ran once a dispatched frame (a re-dispatched segment's
+    frames twice), the nested ones once a keyframe body, and the keyframe
+    body on every insertion the final map counts: exactly that many
+    without a re-dispatch, at least that many with one (a discarded
+    segment's insertions are not in the final map)."""
+    runs = r["body_runs"]
+    dispatched = (r["frames"] // SEG_LEN + r["re_dispatches"]) * SEG_LEN
+    kf = runs.get("d0_True", 0)
+    if (kf + runs.get("d0_False", 0) != dispatched
+            or runs.get("d1_True", 0) + runs.get("d1_False", 0) != kf
+            or kf < r["inserted"] or (not r["re_dispatches"] and kf != r["inserted"])):
+        raise AssertionError(f"8b {name}: the branch's bodies ran {runs} over {dispatched} "
+                             f"dispatched frames and {r['inserted']} insertions in the final map")
+
+
 def run_segmented_path(dev, views: dict, card: str, cam: CameraConfig | None = None) -> dict:
     """8b: the segmented runner three times on phase 8b's circuit (a
     missing-vocabulary warning is an error here). Returns the runs and
@@ -2762,16 +3127,28 @@ def run_segmented_path(dev, views: dict, card: str, cam: CameraConfig | None = N
                 ("plain", cfg, LoopCloser(cfg, device=dev))):
             if closer.vocab is None:
                 raise AssertionError("8b runs without its named vocabulary")
+            mem0 = 0
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+                mem0 = torch.cuda.memory_allocated(dev)
+            bodies_before = _body_totals()
             t = time.perf_counter()
             res = track_sequence_segmented(g, d, run_cfg, vocab=va, segment_len=SEG_LEN,
                                            loop_closer=closer, device=dev)
             wall_s = time.perf_counter() - t
+            body_runs = {k: v - bodies_before.get(k, 0) for k, v in _body_totals().items()}
             n = len(frames) - 1
+            n_seg = n // SEG_LEN
             runs[name] = dict(
+                frames=n, body_runs=body_runs, inserted=int(res.carry.state.next_uid) - 1,
                 n_loop_events=res.n_loop_events,
                 event_frames=[int(i) + 1 for i in np.nonzero(res.stats[:, 3] >= 0)[0]],
                 corrections=[[int(c[0]), int(c[1]), int(c[2])] for c in res.corrections],
                 correction_wall_s=[float(c[3]) for c in res.corrections],
+                # a correction before the last segment queues the next again
+                re_dispatches=sum(1 for c in res.corrections if (c[0] - 1) // SEG_LEN < n_seg - 1),
+                peak_mib_over_start=(torch.cuda.max_memory_allocated(dev) - mem0) / 2**20
+                if dev.type == "cuda" else None,
                 verifier_calls=getattr(closer, "calls", None),
                 not_ok=int((res.stats[:, 0] != 0).sum()), n_kfs_end=int(res.stats[-1, 2]),
                 ate_raw_m=evaluate_ate_xyz(_centres(res.T_all), gt).rmse,
@@ -2784,6 +3161,8 @@ def run_segmented_path(dev, views: dict, card: str, cam: CameraConfig | None = N
         counts = _path_launches("8b: the segmented runs", dev)
     agree, disagree, plain = runs["agree"], runs["disagree"], runs["plain"]
     for name, r in runs.items():
+        if dev.type == "cuda":
+            _check_segmented_bodies(name, r)
         if r["not_ok"]:
             raise AssertionError(f"8b {name}: {r['not_ok']} frames not OK")
         if not r["ate_resolved_m"] < SEG_ATE_GATE:
@@ -4933,6 +5312,8 @@ def main() -> int:
     loop = run_loop_path(dev, rendered[3], card)
     t8 = time.perf_counter()
     scan = run_scan_path(dev, main_res | {"tracker": tracker, "rendered": rendered}, card)
+    scan_trace_here = check_scan_trace(dev, rendered, card, fresh=False)
+    scan_trace = run_scan_trace(rendered, card)
     seg = run_segmented_path(dev, rendered[4], card)
     _log(f"phase 8 took {time.perf_counter() - t8:.1f} s; card: {card}")
     frame_apps = run_frame_apps_path(dev, card, rendered, main_res["poses"])
@@ -4965,6 +5346,8 @@ def main() -> int:
              launches_replayed=main_res["launches_replayed"]["window_match"],
              launches_traced_steady_window=main_res["profile"]["traced"]["window_match"],
              launches_traced_scan_window=scan["profile"]["traced"]["window_match"],
+             launches_traced_scan_segment=scan_trace["traced"]["window_match"],
+             launches_traced_scan_segment_in_process=scan_trace_here["traced"]["window_match"],
              launches_traced_track_replay=track_graph["cases"]["ok"]["traced"]["window_match"],
              launches_traced_keyframe_frame=main_res["keyframe_profile"]["traced"]["window_match"],
              launches_traced_replay=async_mapping["window_16_8"]["traced_replay"]["window_match"],
@@ -4998,7 +5381,14 @@ def main() -> int:
          f"(no closure), closing call {loop['closure']['closing_call_ms']:.2f} ms, global BA "
          f"{loop['global_ba']['global_ba_ms_again']:.2f} ms; scan median "
          f"{scan['replay_median_frame_ms']:.2f} ms/frame (process, same frames: "
-         f"{scan['process_median_frame_ms_same_frames']:.2f}); segmented plain run "
+         f"{scan['process_median_frame_ms_same_frames']:.2f}), its host dispatch "
+         f"{scan['replay_median_dispatch_ms']:.2f} ms a frame; 8c a segment of "
+         f"{SEG_LEN} frames {scan_trace['wall_ms_per_frame']:.2f} ms a frame, dispatch "
+         f"{scan_trace['host_dispatch_ms_per_frame']:.2f} ms, device busy "
+         f"{scan_trace['device_busy_ms_per_frame']:.2f} ms, waits "
+         f"{json.dumps(scan_trace['waits'])}, the branch graph's capture "
+         f"{scan_trace['branch_graph']['capture_ms']:.1f} ms and "
+         f"{scan_trace['branch_graph']['pool_mib']:.1f} MiB; segmented plain run "
          f"{seg['runs']['plain']['fps_wall']:.2f} frames/s; device render "
          f"{dyn['render']['ms_per_frame']:.2f} ms/frame; mask.flow "
          f"{dyn['tracking']['runs']['flow']['mask.flow_mean_ms']:.2f} ms, mask.geometry "

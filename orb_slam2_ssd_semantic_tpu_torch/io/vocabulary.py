@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from orb_slam2_ssd_semantic_tpu_torch.ops.match import popcount32
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import scatter
 
 
 class Vocabulary(NamedTuple):
@@ -186,8 +187,8 @@ def bow_columns(words: torch.Tensor, idf: torch.Tensor) -> torch.Tensor:
     dev = words.device
     ok = words >= 0
     safe = torch.where(ok, words, torch.full_like(words, n_words))  # n_words = drop slot
-    counts = torch.zeros((n_words + 1,), dtype=torch.float32, device=dev).index_add(
-        0, safe, torch.ones((n,), dtype=torch.float32, device=dev))
+    counts = scatter(torch.zeros((n_words + 1,), dtype=torch.float32, device=dev), safe, 1.0,
+                     "add")
     tfidf_word = counts[:n_words] * idf  # un-normalized v per word
     norm = torch.sum(tfidf_word)
     v = tfidf_word[words.clamp(0, n_words - 1)] / torch.clamp(norm, min=1e-9)
@@ -206,8 +207,10 @@ def l1_scores(q_words, q_vals, db_words, db_vals, n_words: int) -> torch.Tensor:
     q_words/q_vals (N,) and db_words/db_vals (F, N) are deduplicated
     sparse columns from bow_columns. Returns (F,) scores in [0, 1]."""
     safe = torch.where(q_words >= 0, q_words, torch.full_like(q_words, n_words))
-    dense = torch.zeros((n_words + 1,), dtype=torch.float32, device=q_vals.device).index_add(
-        0, safe, q_vals)
+    # One nonzero value a word (the columns are deduplicated), so the sum
+    # is exact in any order.
+    dense = scatter(torch.zeros((n_words + 1,), dtype=torch.float32, device=q_vals.device), safe,
+                    q_vals, "add")
     on = db_words >= 0
     qv = torch.where(on, dense[db_words.clamp(0, n_words - 1)], torch.zeros_like(db_vals))
     w = torch.where(on, db_vals, torch.zeros_like(db_vals))

@@ -10,7 +10,8 @@ once and replayed with one launch: dispatched eagerly, local mapping's
 long as the card takes to run them, or longer.
 
 A step can be captured because it never reads the card on the host,
-branches only by selects on the device, has shapes fixed by the
+branches only on the device (by selects, or by
+`mapping/graph_cond.py::device_cond`), has shapes fixed by the
 configuration and draws no random numbers. `GraphedStep` keeps a static
 copy of every tensor of its argument tree (dataclasses and tuples of
 tensors; a Python int is a 0-d int64 tensor, filled on the device) that
@@ -39,7 +40,15 @@ that writes into its input: nothing falls back to the eager step.
 B1 and B2 count the launches their wrappers make (`ops/cuda_build.py`);
 those made during the capture are the graph's (`GraphedStep.captured`),
 which a replay runs without calling a wrapper (`GraphedStep.replays`
-counts the replays).
+counts the replays), apart from those inside a conditional body
+(`mapping/graph_cond.py::device_cond`; `GraphedStep.conditional`), which
+a replay runs only where the body's predicate holds: `GraphedStep.bodies`
+records each body's launches, and `GraphedStep.body_runs`, a counter on
+the card that each body bumps, how often each ran. A step branches on
+the device with `device_cond`: the warm-up runs both branches, the
+capture puts each into a conditional node. `GraphedStep.pool_bytes`
+reads the caching allocator's segments of the graph's pool and its
+bodies' pool.
 
 On the CPU (`device="cpu"`, the tests) the same copies are made, the step
 runs eagerly on the static inputs and its result is copied into output
@@ -52,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 
 import torch
 from torch.utils import _pytree
@@ -59,38 +69,10 @@ from torch.utils import _pytree
 from orb_slam2_ssd_semantic_tpu_torch import device as device_mod
 from orb_slam2_ssd_semantic_tpu_torch.config import SlamConfig
 from orb_slam2_ssd_semantic_tpu_torch.mapping import local_mapping
+from orb_slam2_ssd_semantic_tpu_torch.mapping.graph_cond import _rebuild, capturing, state_leaves
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import SlamState
 from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build
 from orb_slam2_ssd_semantic_tpu_torch.utils import precision
-
-
-def state_leaves(obj, path: str = "state", out=None) -> list:
-    """[(path, leaf)] of a tree of dataclasses and tuples whose leaves are
-    tensors or Python ints, in field order; None holds no leaf."""
-    out = [] if out is None else out
-    if dataclasses.is_dataclass(obj):
-        for f in dataclasses.fields(obj):
-            state_leaves(getattr(obj, f.name), f"{path}.{f.name}", out)
-    elif isinstance(obj, tuple):
-        for i, x in enumerate(obj):
-            state_leaves(x, f"{path}[{i}]", out)
-    elif isinstance(obj, (torch.Tensor, int)):
-        out.append((path, obj))
-    elif obj is not None:
-        raise TypeError(f"{path}: {type(obj).__name__} is not a tensor")
-    return out
-
-
-def _rebuild(template, leaves):
-    """`template` with its leaves replaced, in order, from the iterator
-    `leaves`."""
-    if dataclasses.is_dataclass(template):
-        return dataclasses.replace(template, **{
-            f.name: _rebuild(getattr(template, f.name), leaves)
-            for f in dataclasses.fields(template)})
-    if isinstance(template, tuple):
-        return tuple(_rebuild(x, leaves) for x in template)
-    return None if template is None else next(leaves)
 
 
 def _shape_dtype(x) -> tuple:
@@ -155,8 +137,19 @@ class GraphedStep:
         # role): every call overwrites its leaves.
         self.out = None
         self.captured: dict = {}  # launches by kernel that the capture recorded
+        # Launches by kernel that the capture recorded inside conditional bodies
+        # (`mapping/graph_cond.py`), not in `captured`: a replay runs them only
+        # where the body's predicate holds.
+        self.conditional: dict = {}
+        # Per conditional body, in capture order: its depth, the predicate's
+        # value it runs on and its launches by kernel (`graph_cond.Bodies`).
+        self.bodies: list = []
+        # On the card with bodies: (MAX_BODIES,) int64, body i's runs in slot
+        # i, counted on the device by every replay that runs it.
+        self.body_runs: torch.Tensor | None = None
         self.replays = 0
-        self.pool_bytes = 0  # device memory the graph's private pool reserved
+        self._pools: list = []  # the private pools' ids: the graph's, its bodies'
+        self.upload_ms = 0.0  # host ms of the first replay, which uploads the graph
         # What the capture's replay mapped (`_marks`), until the next call:
         # that call, on the same unchanged leaves, replays nothing.
         self._mapped: list | None = None
@@ -185,20 +178,38 @@ class GraphedStep:
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         launched = dict(cuda_build.captured)
-        with torch.cuda.graph(graph):
-            reserved = torch.cuda.memory_reserved(self.device)
+        launched_if = dict(cuda_build.conditional)
+        with capturing(self.device) as bodies, torch.cuda.graph(graph):
             self.out = self.fn(self.static_args)
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self._pools = [graph.pool()]
+        if bodies.kernels:
+            weakref.finalize(self, torch._C._cuda_releasePool, self.device.index, bodies.pool)
+            self._pools.append(bodies.pool)
+            self.bodies, self.body_runs = bodies.kernels, bodies.runs
         self.captured = {k: n - launched.get(k, 0) for k, n in cuda_build.captured.items()
                          if n > launched.get(k, 0)}
+        self.conditional = {k: n - launched_if.get(k, 0) for k, n in
+                            cuda_build.conditional.items() if n > launched_if.get(k, 0)}
         self._check_untouched(before)
         self.graph = graph
         # A graph's first launch also uploads it to the card (~0.1 s of host
         # for ~18,000 nodes): made here, on the capture's own arguments, so
         # that every later dispatch costs the same and the next call on
         # those arguments finds its result made.
+        t0 = time.perf_counter()
         graph.replay()
+        self.upload_ms = (time.perf_counter() - t0) * 1e3
         self.replays += 1
+
+    @property
+    def pool_bytes(self) -> int:
+        """Device memory that the allocator holds in the graph's private
+        pools: the sizes of their segments (`torch.cuda.memory_snapshot`);
+        0 on the CPU."""
+        pools = {tuple(p) for p in self._pools}
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if seg["device"] == self.device.index
+                   and tuple(seg["segment_pool_id"]) in pools) if pools else 0
 
     def _marks(self, leaves) -> list:
         """[(leaf, version counter or None)] of the leaves the step reads."""

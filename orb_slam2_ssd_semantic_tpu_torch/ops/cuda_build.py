@@ -10,7 +10,10 @@ through the same build and launch; `KERNELS` lists only the port's own.
 `captured` counts, by kernel, the launches made while the current stream
 was capturing a CUDA graph: those kernels run at every replay of the
 graph, which calls no wrapper, so a replay's launches are read from a
-trace of the card, not from a counter.
+trace of the card, not from a counter. `conditional` counts those made
+inside the body of a conditional node (`mapping/graph_cond.py`), which a
+replay runs only where the node's predicate holds (a counter on the card
+says how often each body ran).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ SIGNATURES = {
     "window_match": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 6,
     # a, lda, b, n, x, stream
     "spd_solve": [_P, _I, _P, _I, _P, _P],
+    # op (0 begin an if-node and its body's capture, 1 end it), stream, pred, body stream
+    "graph_cond": [_I, _P, _P, _P],
 }
 KERNELS = tuple(SIGNATURES)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -132,3 +137,4 @@ def launch(p: Prepared) -> None:
 
 
 captured: dict = {}
+conditional: dict = {}

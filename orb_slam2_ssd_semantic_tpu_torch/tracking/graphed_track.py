@@ -1,4 +1,5 @@
-"""The per-frame tracking step as one CUDA graph: `TrackStepRunner`.
+"""The per-frame tracking step as one CUDA graph: `TrackStepRunner`; and
+keyframe insertion as another: `InsertKeyframeRunner`.
 
 JAX compiles `fused_track_step` into one program, and the host makes one
 small transfer a frame, the packed stats (`Tracker.process`). The port's
@@ -21,6 +22,10 @@ graph), and the twelve tensors of the map state the step reads
 `mapping/graphed_step.py::Unread` tensors, on which any operation raises
 with the leaf's name (so a step that comes to read another leaf fails at
 its capture, there), and comes back as the caller's own.
+
+JAX jits `insert_keyframe` too; `InsertKeyframeRunner` replays it from
+one graph per (configuration, `spawn_all`): `Tracker.process` inserts
+every keyframe through it, and `init_scan` its first.
 """
 
 from __future__ import annotations
@@ -122,3 +127,45 @@ class TrackStepRunner(GraphRunner):
         packed), every tensor fresh or the caller's own."""
         graph, a = self.capture(*args, **kwargs)
         return graph(a)
+
+
+@dataclasses.dataclass
+class InsertArgs:
+    """`insert_keyframe`'s tensor arguments, as the graph takes them."""
+
+    state: SlamState
+    frame: tk.Frame
+    T_cw: torch.Tensor
+    kp_point: torch.Tensor
+    frame_id: torch.Tensor | int  # 0-d int64
+    stamp: torch.Tensor  # 0-d float32
+
+
+class InsertKeyframeRunner(GraphRunner):
+    """`step(...)` is `tracker.insert_keyframe(...)` (the same arguments),
+    replayed from one CUDA graph per (configuration, `spawn_all`) on the
+    card, as JAX jits it. `frame_id` and `stamp` enter as 0-d device
+    tensors: the stamp as float32, as JAX's weak float becomes under
+    `jit`. `device=None` is the card (raises without one)."""
+
+    def stats(self, cfg: SlamConfig, spawn_all: bool = False) -> dict:
+        """That graph's capture: host ms (and of them the first replay's,
+        which uploads the graph), private pool bytes and replays."""
+        g = self._captured[(config_key(cfg), spawn_all)]
+        return dict(capture_ms=g.capture_ms, upload_ms=g.upload_ms, pool_bytes=g.pool_bytes,
+                    replays=g.replays)
+
+    @precision.scoped
+    def step(self, state: SlamState, frame: tk.Frame, T_cw, kp_point, frame_id, stamp,
+             cfg: SlamConfig, spawn_all: bool = False):
+        """(state, kp_point) after inserting `frame` at `T_cw` (capturing
+        first if this kind has no graph yet), every tensor fresh or the
+        caller's own."""
+        if not isinstance(stamp, torch.Tensor):
+            stamp = torch.full((), stamp, dtype=torch.float32, device=self.device)
+        args = InsertArgs(state, frame, T_cw, kp_point, frame_id, stamp)
+        graph = self._graph((config_key(cfg), spawn_all), lambda: GraphedStep(
+            lambda a: tk.insert_keyframe(a.state, a.frame, a.T_cw, a.kp_point, a.frame_id,
+                                         a.stamp, cfg, spawn_all=spawn_all),
+            args, self.device, "InsertKeyframeRunner", "insert"))
+        return graph(args)

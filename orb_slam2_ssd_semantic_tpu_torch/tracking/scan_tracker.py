@@ -4,28 +4,34 @@ uploaded once and the full per-frame SLAM update runs over them, with
 only the trajectory and per-frame stats coming back.
 
 The JAX module runs the sequence as one `lax.scan` with the keyframe
-branch under `lax.cond`. Here the scan is a host loop over the frames:
-- the per-frame half of a step is the tracker's `fused_track_step`
-  (frame build, motion model with the reference-keyframe fallback,
-  local-map tracking, keyframe decision, velocity), replayed from the
-  carry's `TrackStepRunner` graph (`tracking/graphed_track.py`);
-- the keyframe branch is a Python branch on `need_kf`, one stream sync a
-  frame (the `Tracker.process` stats fetch, in another place), and in it
-  local mapping waits on one more (`n_kfs >= 3`); local mapping replays
-  the carry's `LocalMappingRunner` graph (`mapping/graphed_step.py`).
-  The carries of one run share both runners, so a run captures each
-  once. (JAX's keyframe branch is a `lax.cond` inside its one `lax.scan`;
-  on the card that would need conditional graph nodes.)
-- with a vocabulary, every keyframe event runs loop DETECTION
-  (`_detect_loop`) after local mapping, in the JAX scan's order
-  (`Tracker.process` runs loop closing before local mapping);
-- per-frame poses, stats and keyframe-relative records stay on the
-  device until the caller fetches them.
+branch under `lax.cond`. Here the scan is a host loop over the frames
+that never reads the card: each frame is two CUDA-graph replays,
+- the per-frame half of a step, the tracker's `fused_track_step` (frame
+  build, motion model with the reference-keyframe fallback, local-map
+  tracking, keyframe decision, velocity), replayed from the carry's
+  `TrackStepRunner` graph (`tracking/graphed_track.py`);
+- the keyframe branch and the carry's update (`_keyframe_branch`),
+  replayed from the carry's `KeyframeBranchRunner` graph: insertion,
+  local mapping under a nested `device_cond` on `n_kfs >= 3`, loop
+  DETECTION with a vocabulary (`_detect_loop`, in the JAX scan's order:
+  `Tracker.process` runs loop closing before local mapping), the
+  geometry mask's view ring with `use_geom` and the re-anchor, all under
+  `mapping/graph_cond.py::device_cond` on `need_kf`: conditional graph
+  nodes on the card, whose bodies run only where the device's predicate
+  holds. The frame counters (`frames_since_kf`, `ref_kf_inliers`,
+  `frame_idx`) are 0-d device tensors, as in JAX's carry.
+The carries of one run share both runners (made by `init_scan`), so a
+run captures each graph once. Per-frame poses, stats and keyframe-relative
+records stay on the device until the caller fetches them: without masks
+nothing in a segment waits on the card, and the host queues frame i + 1
+while the card runs frame i.
 
 With `use_flow` the flow mask runs on every frame against the frame
 before it (`prev_grays`); with `use_geom` the geometry mask runs against
 the carry's ring of keyframe views (seeded with frame 0 by `init_scan`,
-fed by every keyframe event), at the motion model's predicted pose.
+fed by every keyframe event), at the motion model's predicted pose. The
+masks run eagerly before each frame's graphs, and the flow mask's
+homography fit waits on the card.
 
 Nothing writes into its input: a segment run twice from one carry gives
 the same result, which the segmented runner (`tracking/segmented.py`)
@@ -50,16 +56,25 @@ from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import (
 )
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
 from orb_slam2_ssd_semantic_tpu_torch.io import vocabulary as voc
-from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import LocalMappingRunner
+from orb_slam2_ssd_semantic_tpu_torch.mapping import local_mapping
+from orb_slam2_ssd_semantic_tpu_torch.mapping.graph_cond import device_cond
+from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import (
+    GraphedStep,
+    GraphRunner,
+    config_key,
+)
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import (
     SlamState,
     covisibility_row,
     empty_state,
 )
 from orb_slam2_ssd_semantic_tpu_torch.tracking import tracker as tk
-from orb_slam2_ssd_semantic_tpu_torch.tracking.graphed_track import TrackStepRunner
+from orb_slam2_ssd_semantic_tpu_torch.tracking.graphed_track import (
+    InsertKeyframeRunner,
+    TrackStepRunner,
+)
 from orb_slam2_ssd_semantic_tpu_torch.utils import precision
-from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import scatter
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import row, scatter
 
 # The JAX module's device-resident vocabulary arrays: here the port's
 # `DeviceVocabulary` (children, desc, word_id, idf and depth), made with
@@ -74,15 +89,15 @@ class ScanCarry:
     last_T_cw: torch.Tensor
     last_kp_point: torch.Tensor
     velocity: torch.Tensor
-    frames_since_kf: int
-    ref_kf_inliers: int
-    frame_idx: int
+    frames_since_kf: torch.Tensor  # () int64
+    ref_kf_inliers: torch.Tensor  # () int64
+    frame_idx: torch.Tensor  # () int64
     word_db: torch.Tensor  # (F, K) int64 per-keyframe BoW words (-1 empty)
     val_db: torch.Tensor  # (F, K) f32 deduplicated TF-IDF values
     cons_count: torch.Tensor  # (F,) int32 consecutive-consistency counters
-    # Local mapping's runner (its CUDA graph on the card), made by
+    # The keyframe branch's runner (its CUDA graph on the card), made by
     # `init_scan` and shared by every carry that follows.
-    mapper: LocalMappingRunner
+    branch: "KeyframeBranchRunner"
     # The tracking step's runner, the same way.
     track: TrackStepRunner
     # The geometry mask's reference views (`use_geom`), else None.
@@ -109,13 +124,15 @@ def _bow_add(word_db, val_db, slot, desc, valid, vocab: VocabArrays):
 def init_scan(state: SlamState, gray0, depth0, cfg: SlamConfig,
               vocab: VocabArrays | None = None, use_geom: bool = False) -> ScanCarry:
     """Frame 0 becomes the first keyframe at the identity pose, with every
-    keypoint of valid depth spawned as a map point; with `use_geom` it is
-    also the first view of the geometry mask's ring."""
+    keypoint of valid depth spawned as a map point (inserted through an
+    `InsertKeyframeRunner`'s graph); with `use_geom` it is also the first
+    view of the geometry mask's ring. Reads nothing on the host."""
     dev = state.kfs.valid.device
     frame = tk.build_frame(gray0, depth0, cfg)
     T0 = torch.eye(4, dtype=torch.float32, device=dev)
     kp_point = torch.full((frame.feats.capacity,), -1, dtype=torch.int64, device=dev)
-    state, kp_point = tk.insert_keyframe(state, frame, T0, kp_point, 0, 0.0, cfg, spawn_all=True)
+    state, kp_point = InsertKeyframeRunner(dev).step(state, frame, T0, kp_point, 0, 0.0, cfg,
+                                                     spawn_all=True)
     word_db, val_db, cons = _empty_bow_db(cfg, dev)
     if vocab is not None:
         word_db, val_db, _, _ = _bow_add(word_db, val_db, state.last_kf, frame.feats.desc,
@@ -127,10 +144,12 @@ def init_scan(state: SlamState, gray0, depth0, cfg: SlamConfig,
             frame.feats.uv, frame.kp_depth, frame.feats.valid & frame.is_stereo)
     return ScanCarry(
         state=state, last_frame=frame, last_T_cw=T0, last_kp_point=kp_point,
-        velocity=torch.eye(4, dtype=torch.float32, device=dev), frames_since_kf=0,
-        ref_kf_inliers=int((frame.is_stereo & frame.feats.valid).sum()), frame_idx=1,
+        velocity=torch.eye(4, dtype=torch.float32, device=dev),
+        frames_since_kf=torch.zeros((), dtype=torch.int64, device=dev),
+        ref_kf_inliers=(frame.is_stereo & frame.feats.valid).sum(),
+        frame_idx=torch.ones((), dtype=torch.int64, device=dev),
         word_db=word_db, val_db=val_db, cons_count=cons, geom_db=geom_db,
-        mapper=LocalMappingRunner(dev), track=TrackStepRunner(dev))
+        branch=KeyframeBranchRunner(dev), track=TrackStepRunner(dev))
 
 
 def _detect_loop(state: SlamState, frame, word_db, val_db, cons, cfg: SlamConfig,
@@ -157,7 +176,7 @@ def _detect_loop(state: SlamState, frame, word_db, val_db, cons, cfg: SlamConfig
     dev = word_db.device
     slot = state.last_kf
     uid = state.kfs.uid
-    uid_cur = uid[slot]
+    uid_cur = row(uid, slot)
     valid = state.kfs.valid
 
     word_db, val_db, words, vals = _bow_add(word_db, val_db, slot, frame.feats.desc,
@@ -185,6 +204,116 @@ def _detect_loop(state: SlamState, frame, word_db, val_db, cons, cfg: SlamConfig
     return word_db, val_db, cons_new, loop_cand
 
 
+@dataclasses.dataclass
+class BranchArgs:
+    """The keyframe branch's tensor arguments, as its graph takes them:
+    what the tracking step returned for the frame and the carry it
+    updates."""
+
+    state: SlamState
+    frame: tk.Frame
+    T_cw: torch.Tensor
+    velocity: torch.Tensor
+    kp_point: torch.Tensor
+    packed: torch.Tensor  # the tracking step's [T_cw (16), status, need_kf, n_inliers, ...]
+    last_T_cw: torch.Tensor
+    frames_since_kf: torch.Tensor
+    ref_kf_inliers: torch.Tensor
+    frame_idx: torch.Tensor
+    word_db: torch.Tensor
+    val_db: torch.Tensor
+    cons_count: torch.Tensor
+    geom_db: GeomRefViews | None
+
+
+def _keyframe_branch(a: BranchArgs, cfg: SlamConfig, vocab: VocabArrays | None,
+                     use_geom: bool, with_rel: bool):
+    """JAX's `do_insert` under `lax.cond(need_kf, ...)` and its carry
+    update (`scan_tracker.py:315-383` of the JAX package): on a keyframe,
+    insertion, local mapping once three keyframes exist, loop detection
+    with a vocabulary, the geometry mask's view ring with `use_geom` and,
+    with `reanchor_on_kf`, the re-anchor on the mapped pose and its
+    velocity. Returns (state, T_cw, velocity, kp_point, frames_since_kf,
+    ref_kf_inliers, frame_idx, word_db, val_db, cons_count, geom_db, stats
+    (4,) [status, n_inl, n_kfs, loop_cand], and with `with_rel` T_rel
+    (4, 4) and the reference keyframe's uid, else None twice)."""
+    t = cfg.tracking
+    need_kf = a.packed[17] > 0.5
+    status = a.packed[16].to(torch.int64)
+    no_cand = torch.full((), -1, dtype=torch.int64, device=a.T_cw.device)
+
+    def do_insert(op):
+        state, kp_point, word_db, val_db, cons, geom_db = op
+        state, kp_point = tk.insert_keyframe(state, a.frame, a.T_cw, kp_point, a.frame_idx,
+                                             a.frame_idx.to(torch.float32), cfg)
+        state = device_cond(state.n_kfs >= 3, lambda s: local_mapping.local_mapping_step(s, cfg),
+                            lambda s: s, state)
+        loop_cand = no_cand
+        if vocab is not None:
+            word_db, val_db, cons, loop_cand = _detect_loop(state, a.frame, word_db, val_db, cons,
+                                                            cfg, vocab)
+        if use_geom:
+            geom_db = insert_ref_view(geom_db, a.T_cw, a.frame.feats.uv, a.frame.kp_depth,
+                                      a.frame.feats.valid & a.frame.is_stereo)
+        return state, kp_point, word_db, val_db, cons, geom_db, loop_cand
+
+    state, kp_point, word_db, val_db, cons, geom_db, loop_cand = device_cond(
+        need_kf, do_insert, lambda op: op + (no_cand,),
+        (a.state, a.kp_point, a.word_db, a.val_db, a.cons_count, a.geom_db))
+    T_cw, vel = a.T_cw, a.velocity
+    if t.reanchor_on_kf:
+        # Re-anchor on the BA-refined pose; the velocity follows it.
+        T_cw = torch.where(need_kf, row(state.kfs.T_cw, state.last_kf), T_cw)
+        vel = torch.where(need_kf, tk.motion_velocity(T_cw, a.last_T_cw, status, cfg), vel)
+    zero = torch.zeros_like(a.frames_since_kf)
+    frames_since_kf = torch.where(need_kf, zero, a.frames_since_kf + 1)
+    # Reference count: the new keyframe's landmark associations (tracked +
+    # spawned), NeedNewKeyFrame's nRefMatches.
+    ref_kf_inliers = torch.where(need_kf, (kp_point >= 0).sum(), a.ref_kf_inliers)
+    stats = torch.stack([status, a.packed[18].to(torch.int64), state.n_kfs.to(torch.int64),
+                         loop_cand])
+    T_rel = ref_uid = None
+    if with_rel:
+        T_rel = T_cw @ se3.se3_inverse(row(state.kfs.T_cw, state.last_kf))
+        ref_uid = row(state.kfs.uid, state.last_kf)
+    return (state, T_cw, vel, kp_point, frames_since_kf, ref_kf_inliers, a.frame_idx + 1,
+            word_db, val_db, cons, geom_db, stats, T_rel, ref_uid)
+
+
+class KeyframeBranchRunner(GraphRunner):
+    """`step(args, cfg, ...)` is `_keyframe_branch`, replayed from one CUDA
+    graph per (configuration, vocabulary, `use_geom`, `with_rel`) on the
+    card, its keyframe body under conditional nodes. The vocabulary's
+    tensors are read where they lie, not copied in: the graph keeps them,
+    and they must not change. `device=None` is the card (raises without
+    one)."""
+
+    @staticmethod
+    def _key(cfg: SlamConfig, vocab, use_geom: bool, with_rel: bool):
+        return config_key(cfg), None if vocab is None else id(vocab), use_geom, with_rel
+
+    def stats(self, cfg: SlamConfig, vocab=None, use_geom: bool = False,
+              with_rel: bool = False) -> dict:
+        """That graph's capture: host ms (and of them the first replay's,
+        which uploads the graph), private pools' bytes, replays, and B1's and
+        B2's launches recorded outside and inside its conditional bodies,
+        with each body's record (`GraphedStep.bodies`)."""
+        g = self._captured[self._key(cfg, vocab, use_geom, with_rel)]
+        return dict(capture_ms=g.capture_ms, upload_ms=g.upload_ms, pool_bytes=g.pool_bytes,
+                    replays=g.replays, captured=dict(g.captured), conditional=dict(g.conditional),
+                    bodies=g.bodies)
+
+    @precision.scoped
+    def step(self, args: BranchArgs, cfg: SlamConfig, vocab: VocabArrays | None = None,
+             use_geom: bool = False, with_rel: bool = False):
+        """`_keyframe_branch(args, ...)` (capturing first if this kind has no
+        graph yet), every tensor fresh or the caller's own."""
+        graph = self._graph(self._key(cfg, vocab, use_geom, with_rel), lambda: GraphedStep(
+            lambda a: _keyframe_branch(a, cfg, vocab, use_geom, with_rel), args, self.device,
+            "KeyframeBranchRunner", "branch"))
+        return graph(args)
+
+
 @precision.scoped
 def track_sequence_scan(carry: ScanCarry, grays: torch.Tensor, depths: torch.Tensor,
                         cfg: SlamConfig, vocab: VocabArrays | None = None,
@@ -206,68 +335,40 @@ def track_sequence_scan(carry: ScanCarry, grays: torch.Tensor, depths: torch.Ten
     (the frames before these; None: the frame before within `grays`, and
     for the first frame the frame itself). `use_geom` needs a carry from
     `init_scan(..., use_geom=True)`."""
-    t = cfg.tracking
     if use_flow and prev_grays is None:
         prev_grays = torch.cat([grays[:1], grays[:-1]])
-    geom_db = carry.geom_db
-    if use_geom and geom_db is None:
+    if use_geom and carry.geom_db is None:
         raise ValueError("use_geom needs a carry made by init_scan(..., use_geom=True)")
-    state = carry.state
-    last_frame, last_T_cw, last_kp_point = carry.last_frame, carry.last_T_cw, carry.last_kp_point
-    velocity = carry.velocity
-    frames_since_kf, ref_kf_inliers, frame_idx = (carry.frames_since_kf, carry.ref_kf_inliers,
-                                                  carry.frame_idx)
-    word_db, val_db, cons = carry.word_db, carry.val_db, carry.cons_count
-    no_cand = torch.full((), -1, dtype=torch.int64, device=last_T_cw.device)
+    c = carry
     T_out, stats_out, rel_out, uid_out = [], [], [], []
     for i in range(grays.shape[0]):
         mask = None
         if use_flow:
             mask = flow_dynamic_mask_fitted(prev_grays[i], grays[i], cfg.dynamic)
         if use_geom:
-            gmask = geometry_dynamic_mask(geom_db, velocity @ last_T_cw,
+            gmask = geometry_dynamic_mask(c.geom_db, c.velocity @ c.last_T_cw,
                                           tk.depth_metres(depths[i]), cfg.camera, cfg.dynamic)
             mask = gmask if mask is None else mask & gmask
-        state, frame, T_cw, vel, kp_point, packed = carry.track.step(
-            state, grays[i], depths[i], last_frame, last_T_cw, last_kp_point, velocity,
-            frames_since_kf, ref_kf_inliers, cfg, static_mask=mask)
-        status = packed[16].to(torch.int64)
-        loop_cand = no_cand
-        if bool(packed[17] > 0.5):  # need_kf: host sync
-            state, kp_point = tk.insert_keyframe(state, frame, T_cw, kp_point, frame_idx,
-                                                 float(frame_idx), cfg)
-            if int(state.n_kfs) >= 3:  # host sync
-                state = carry.mapper.step(state, cfg)
-            if vocab is not None:
-                word_db, val_db, cons, loop_cand = _detect_loop(state, frame, word_db, val_db,
-                                                                cons, cfg, vocab)
-            if use_geom:
-                geom_db = insert_ref_view(geom_db, T_cw, frame.feats.uv, frame.kp_depth,
-                                          frame.feats.valid & frame.is_stereo)
-            if t.reanchor_on_kf:
-                # Re-anchor on the BA-refined pose; the velocity follows it.
-                T_cw = state.kfs.T_cw[state.last_kf]
-                vel = tk.motion_velocity(T_cw, last_T_cw, status, cfg)
-            frames_since_kf = 0
-            # Reference count: the new keyframe's landmark associations
-            # (tracked + spawned), NeedNewKeyFrame's nRefMatches.
-            ref_kf_inliers = int((kp_point >= 0).sum())
-        else:
-            frames_since_kf += 1
-        last_frame, last_T_cw, last_kp_point, velocity = frame, T_cw, kp_point, vel
-        frame_idx += 1
+        state, frame, T_cw, vel, kp_point, packed = c.track.step(
+            c.state, grays[i], depths[i], c.last_frame, c.last_T_cw, c.last_kp_point, c.velocity,
+            c.frames_since_kf, c.ref_kf_inliers, cfg, static_mask=mask)
+        (state, T_cw, vel, kp_point, frames_since_kf, ref_kf_inliers, frame_idx, word_db, val_db,
+         cons, geom_db, stats, T_rel, ref_uid) = c.branch.step(
+            BranchArgs(state, frame, T_cw, vel, kp_point, packed, c.last_T_cw, c.frames_since_kf,
+                       c.ref_kf_inliers, c.frame_idx, c.word_db, c.val_db, c.cons_count,
+                       c.geom_db if use_geom else None),
+            cfg, vocab, use_geom, with_rel)
+        c = c.replace(
+            state=state, last_frame=frame, last_T_cw=T_cw, last_kp_point=kp_point, velocity=vel,
+            frames_since_kf=frames_since_kf, ref_kf_inliers=ref_kf_inliers, frame_idx=frame_idx,
+            word_db=word_db, val_db=val_db, cons_count=cons,
+            geom_db=geom_db if use_geom else c.geom_db)
         T_out.append(T_cw)
-        stats_out.append(torch.stack([status, packed[18].to(torch.int64),
-                                      state.n_kfs.to(torch.int64), loop_cand]))
+        stats_out.append(stats)
         if with_rel:
-            ref_slot = state.last_kf
-            rel_out.append(T_cw @ se3.se3_inverse(state.kfs.T_cw[ref_slot]))
-            uid_out.append(state.kfs.uid[ref_slot])
-    new_carry = carry.replace(
-        state=state, last_frame=last_frame, last_T_cw=last_T_cw, last_kp_point=last_kp_point,
-        velocity=velocity, frames_since_kf=frames_since_kf, ref_kf_inliers=ref_kf_inliers,
-        frame_idx=frame_idx, word_db=word_db, val_db=val_db, cons_count=cons, geom_db=geom_db)
-    out = (new_carry, torch.stack(T_out), torch.stack(stats_out))
+            rel_out.append(T_rel)
+            uid_out.append(ref_uid)
+    out = (c, torch.stack(T_out), torch.stack(stats_out))
     if with_rel:
         out = out + (torch.stack(rel_out), torch.stack(uid_out))
     return out

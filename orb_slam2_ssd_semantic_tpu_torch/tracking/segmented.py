@@ -19,15 +19,17 @@ equal-length scan segments, and between two segments the host:
      keyframe's correction, so the next segment runs from the corrected
      carry without a pose jump.
 
-The JAX module dispatches segment s+1 before it reads segment s's stats
-and dispatches it again after a correction. The port's segments are
-driven from the host, so it runs them in order: it reads segment s, then
-runs segment s+1 from the carry as corrected. Every segment after a
-correction thus starts from the corrected carry, as in JAX; only the
-timing differs. The carries of one run share one `LocalMappingRunner`
-and one `TrackStepRunner` (made by `init_scan`), so local mapping and
-the per-frame tracking step are each captured into one CUDA graph once a
-run and replayed in every segment; what they return is never
+As the JAX module does, the runner dispatches segment s+1 on the
+uninspected carry before it fetches segment s, so that the host's read
+and the verification hide behind the card's work, and after a
+correction dispatches s+1 again from the corrected carry. A segment's
+scan reads nothing on the host (`scan_tracker.py`), so its dispatch
+returns once every frame is queued; its fetch is one device-to-host copy
+into pinned memory, queued right behind the segment, whose event the
+host waits on. The carries of one run share one `KeyframeBranchRunner`
+and one `TrackStepRunner` (made by `init_scan`), so the keyframe branch
+and the per-frame tracking step are each captured into one CUDA graph
+once a run and replayed in every segment; what they return is never
 overwritten by a later replay, so a carry kept for a correction stays as
 it was.
 
@@ -53,9 +55,9 @@ from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker
 from orb_slam2_ssd_semantic_tpu_torch.utils import precision
 
 
-def _pack_segment(T_seg, stats_seg, T_rel, ref_uid, uid, valid, fid) -> np.ndarray:
-    """One device-to-host transfer per segment: poses, stats, the
-    keyframe-relative records and the keyframe snapshot, as float32."""
+def _pack_segment(T_seg, stats_seg, T_rel, ref_uid, uid, valid, fid) -> torch.Tensor:
+    """Poses, stats, the keyframe-relative records and the keyframe
+    snapshot of a segment in one float32 tensor on the device."""
     return torch.cat([
         T_seg.reshape(-1),
         stats_seg.to(torch.float32).reshape(-1),
@@ -64,7 +66,26 @@ def _pack_segment(T_seg, stats_seg, T_rel, ref_uid, uid, valid, fid) -> np.ndarr
         uid.to(torch.float32),
         valid.to(torch.float32),
         fid.to(torch.float32),
-    ]).cpu().numpy()
+    ])
+
+
+def _start_fetch(packed: torch.Tensor):
+    """Queue the segment's one device-to-host copy behind its work:
+    (host tensor, event the copy records, None off the card)."""
+    if packed.device.type != "cuda":
+        return packed, None
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _fetch(host: torch.Tensor, done) -> np.ndarray:
+    """Wait for `_start_fetch`'s copy: the segment's values on the host."""
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
 
 
 class SegmentedResult(NamedTuple):
@@ -74,8 +95,8 @@ class SegmentedResult(NamedTuple):
     traj: list  # per-frame (ref_kf_uid, T_rel) keyframe-relative records
     corrections: list  # (frame_idx, kf_slot, cand_slot, wall_s)
     n_loop_events: int  # flagged candidate events (pre-verification)
-    # Wall time of the segment runs, each ended by its stats fetch: the
-    # host drives the frames, so this is the tracking time itself.
+    # Host time spent waiting for the segments' fetches (JAX's `scan_s`):
+    # what the card's tracking took beyond the host's own work.
     scan_s: float
     correct_s: float  # wall time inside verification + correction
     kf_pose_at_insert: dict  # uid -> (frame_idx, tracked pose at insert)
@@ -165,19 +186,32 @@ def track_sequence_segmented(
     pending_est = None  # (uid, cand_uid, D_t (3,))
     S = segment_len
 
-    for s in range(n_seg):
+    def dispatch(carry_in, s: int):
+        """Queue segment s on the card from `carry_in` and its fetch behind
+        it: (carry after it, (host buffer, event)). Waits on nothing."""
+        lo = 1 + s * S
+        hi = lo + S
+        carry_out, T_seg, stats_seg, T_rel, ref_uid = scan_tracker.track_sequence_scan(
+            carry_in, g_dev[lo:hi], d_dev[lo:hi], cfg, vocab=vocab, with_rel=True,
+            prev_grays=g_dev[lo - 1:hi - 1] if use_flow else None, use_flow=use_flow,
+            use_geom=use_geom)
+        kfs = carry_out.state.kfs
+        return carry_out, _start_fetch(_pack_segment(T_seg, stats_seg, T_rel, ref_uid, kfs.uid,
+                                                     kfs.valid, kfs.frame_id))
+
+    # Speculative pipeline: segment s+1 is queued on the uninspected carry
+    # before segment s's values are fetched. A correction invalidates it,
+    # and it is queued again from the corrected carry.
+    pending = (0, *dispatch(carry, 0))
+    while pending is not None:
+        s, carry_after, fetch = pending
+        pending = (s + 1, *dispatch(carry_after, s + 1)) if s + 1 < n_seg else None
         lo = 1 + s * S
         hi = lo + S
         t_scan = time.perf_counter()
-        carry_after, T_seg, stats_seg, T_rel, ref_uid = scan_tracker.track_sequence_scan(
-            carry, g_dev[lo:hi], d_dev[lo:hi], cfg, vocab=vocab, with_rel=True,
-            prev_grays=g_dev[lo - 1:hi - 1] if use_flow else None, use_flow=use_flow,
-            use_geom=use_geom)
-        kfs_after = carry_after.state.kfs
-        packed = _pack_segment(T_seg, stats_seg, T_rel, ref_uid, kfs_after.uid, kfs_after.valid,
-                               kfs_after.frame_id)
+        packed = _fetch(*fetch)
         scan_s += time.perf_counter() - t_scan
-        F = kfs_after.uid.shape[0]
+        F = carry_after.state.kfs.uid.shape[0]
         T_host = packed[:S * 16].reshape(S, 4, 4)
         stats_host = packed[S * 16:S * 20].reshape(S, 4)
         rel_host = packed[S * 20:S * 36].reshape(S, 4, 4)
@@ -296,6 +330,10 @@ def track_sequence_segmented(
                 # geometry changed under the counters.
                 cons_count=torch.zeros_like(carry.cons_count),
             )
+            # The next segment ran on the uncorrected carry: queue it again
+            # from the corrected one.
+            if pending is not None:
+                pending = (pending[0], *dispatch(carry, pending[0]))
         correct_s += time.perf_counter() - t_corr
 
     T_all = np.concatenate(T_parts)

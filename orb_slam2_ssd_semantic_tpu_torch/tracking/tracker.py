@@ -18,8 +18,10 @@ graph's inputs, one `cudaGraphLaunch` and one fetch of the packed stats
 goes through the tracker's `LocalMappingRunner`
 (`mapping/graphed_step.py`) the same way: captured at the first keyframe
 that maps (stage `local_mapping.capture`, whose first replay maps that
-keyframe), replayed at every later one (stage `local_mapping`). Host
-reads per frame:
+keyframe), replayed at every later one (stage `local_mapping`), and so
+does keyframe insertion, as JAX jits it, through the tracker's
+`InsertKeyframeRunner` (`tracking/graphed_track.py`; stage
+`keyframe.insert`, one graph per `spawn_all`). Host reads per frame:
   - every tracked frame: 1, the packed per-frame stats;
   - a keyframe: the reference count after insertion, the retirement
     records (`_capture_retirements`) and +5 host mirrors, all before
@@ -504,6 +506,7 @@ class Tracker:
         self._lost_streak = 0
         self._mapper = None
         self._track_runner = None
+        self._insert_runner = None
 
     def _to_device(self, a) -> torch.Tensor:
         """A host image on the tracker's device. The card's copy goes from
@@ -553,8 +556,8 @@ class Tracker:
                 frame = build_frame(gray, depth, cfg, static_mask)
             T_cw = _eye4(self.device)
             kp_point = torch.full((frame.feats.capacity,), -1, dtype=torch.int64, device=self.device)
-            self.state, kp_point = insert_keyframe(self.state, frame, T_cw, kp_point,
-                                                   self.frame_id, stamp, cfg, spawn_all=True)
+            self.state, kp_point = self.insert_runner().step(
+                self.state, frame, T_cw, kp_point, self.frame_id, stamp, cfg, spawn_all=True)
             self.initialized = True
             self.status = "OK"
             self.ref_kf_inliers = int((frame.is_stereo & frame.feats.valid).sum())
@@ -585,8 +588,9 @@ class Tracker:
         if need_kf and self.allow_new_keyframes:
             self._capture_retirements()
             with self.metrics.stage("keyframe.insert"):
-                self.state, kp_point = insert_keyframe(self.state, frame, T_cw, kp_point,
-                                                       self.frame_id, stamp, cfg)
+                with record_function("keyframe.insert"):
+                    self.state, kp_point = self.insert_runner().step(
+                        self.state, frame, T_cw, kp_point, self.frame_id, stamp, cfg)
                 kf_slot = int(self.state.last_kf)
             self.metrics.count("keyframes")
             self.frames_since_kf = 0
@@ -670,6 +674,18 @@ class Tracker:
 
             self._track_runner = TrackStepRunner(self.device)
         return self._track_runner
+
+    def insert_runner(self):
+        """The tracker's runner of `insert_keyframe` (one CUDA graph per
+        configuration and `spawn_all` on the card), made at the first
+        call."""
+        if self._insert_runner is None:
+            from orb_slam2_ssd_semantic_tpu_torch.tracking.graphed_track import (
+                InsertKeyframeRunner,
+            )
+
+            self._insert_runner = InsertKeyframeRunner(self.device)
+        return self._insert_runner
 
     def local_mapper(self):
         """The tracker's local-mapping runner (one CUDA graph of the step

@@ -1,8 +1,10 @@
 """`host_reads_trapped()`: the port's CPU tests of code that must never
 wait on the card (the local-mapping step, the per-frame tracking step,
-their CUDA-graph runners) run it inside this trap, where every way of
-reading a tensor on the host, or of making one from host data, raises
-`HostRead`."""
+the scan's keyframe branch, their CUDA-graph runners) run it inside this
+trap, where every way of reading a tensor on the host, or of making one
+from host data, raises `HostRead`. `allowed` names functions whose own
+reads pass (`device_cond`'s predicate read on the CPU): the trap counts
+their calls."""
 
 import contextlib
 
@@ -14,15 +16,33 @@ class HostRead(AssertionError):
 
 
 @contextlib.contextmanager
-def host_reads_trapped():
+def host_reads_trapped(allowed=()):
     """Inside, every way of reading a tensor on the host, or of making one
-    from host data, raises `HostRead`."""
+    from host data, raises `HostRead`, except inside a call of one of the
+    `allowed` functions, given as (module, name). Yields {name: calls} of
+    those."""
     T = torch.Tensor
     saved = []
+    calls = {name: 0 for _, name in allowed}
+    inside = [0]
 
     def patch(owner, name, fn):
-        saved.append((owner, name, getattr(owner, name)))
-        setattr(owner, name, fn)
+        orig = getattr(owner, name)
+        saved.append((owner, name, orig))
+
+        def guarded(*args, **kwargs):
+            return orig(*args, **kwargs) if inside[0] else fn(*args, **kwargs)
+        setattr(owner, name, guarded)
+
+    def opened(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            inside[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                inside[0] -= 1
+        return call
 
     def refuse(name):
         def call(*args, **kwargs):
@@ -64,8 +84,12 @@ def host_reads_trapped():
     patch(torch, "nonzero", refuse("torch.nonzero"))
     patch(torch, "tensor", from_host(tensor, "torch.tensor"))
     patch(torch, "as_tensor", from_host(as_tensor, "torch.as_tensor"))
+    for module, name in allowed:
+        fn = getattr(module, name)
+        saved.append((module, name, fn))
+        setattr(module, name, opened(name, fn))
     try:
-        yield
+        yield calls
     finally:
         for owner, name, fn in reversed(saved):
             setattr(owner, name, fn)

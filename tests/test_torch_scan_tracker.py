@@ -22,6 +22,9 @@ Gates, and why:
   candidate equal; the BoW values within `test_torch_vocabulary.py`'s
   1e-6 (the L1 norm is an f32 sum that XLA and torch take in other
   orders: 1 ulp on some rows);
+- frames 1-6 of the scan with every host read trapped: nothing is read
+  but `device_cond`'s predicate (the one read it makes on the CPU), and
+  the carry keeps its shapes and dtypes;
 - a segment run twice from one carry, and `LoopCloser._correct` on a
   state, leave their inputs bit-equal (the segmented runner reads the
   pre-correction carry after `_correct` has returned);
@@ -52,12 +55,14 @@ from orb_slam2_ssd_semantic_tpu.tracking import scan_tracker as jst
 from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import insert_ref_view
 from orb_slam2_ssd_semantic_tpu_torch.eval.ate import evaluate_ate_xyz
 from orb_slam2_ssd_semantic_tpu_torch.io.synthetic import SyntheticSequence
+from orb_slam2_ssd_semantic_tpu_torch.mapping import graph_cond
 from orb_slam2_ssd_semantic_tpu_torch.mapping.loop_closing import LoopCloser
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import empty_state as t_empty_state
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import state_from_numpy
 from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker as tst
 from orb_slam2_ssd_semantic_tpu_torch.tracking.tracker import Tracker
 from test_torch_tracker import small_config
+from _torch_host_reads import host_reads_trapped
 from _torch_threads import _few_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
@@ -279,6 +284,32 @@ def test_detect_loop_matches_jax(runs):
     assert c1 == CANDS[0] and (cons1[list(CANDS)] >= th).all(), picked  # the tie
     assert cons1[INVALID] == 0 and (cons1[list(NEAR)] == 0).all()
     assert c2 >= 0 and c3 == -1 and cons3.max() < th, picked
+
+
+# ---- no host read ------------------------------------------------------------
+
+def _spec(tree):
+    return [(p, tuple(t.shape), t.dtype) for p, t in tensors(tree)]
+
+
+def test_scan_reads_nothing_on_the_host_but_the_predicates(runs):
+    """Frames 1-6 from the initial carry (keyframes at 3 and 6, local
+    mapping at 6, detection at both) with every host read trapped: the
+    tracking step and the keyframe branch read nothing but `device_cond`'s
+    predicate (need_kf every frame, n_kfs >= 3 at each keyframe), and the
+    frames equal the fixture's scan bit for bit. The branch returns the
+    carry's shapes and dtypes whichever way it goes (the card's
+    conditional nodes copy one branch's outputs into the other's)."""
+    g, d = torch.from_numpy(runs.g[1:7]), torch.from_numpy(runs.d[1:7])
+    with host_reads_trapped(allowed=[(graph_cond, "predicate_on_host")]) as reads:
+        c, T, stats, rel, uid = tst.track_sequence_scan(runs.tc0, g, d, runs.tcfg,
+                                                        vocab=runs.tva, with_rel=True)
+    assert reads == {"predicate_on_host": 6 + 2}
+    assert torch.equal(T, torch.from_numpy(runs.tT[:6]))
+    assert torch.equal(stats, torch.from_numpy(runs.tstats[:6]))
+    assert torch.equal(uid, torch.from_numpy(runs.tuid[:6]))
+    assert int(c.state.n_kfs) >= 3 and int(c.frame_idx) == 7
+    assert _spec(c) == _spec(runs.tc0)
 
 
 # ---- nothing writes into its input ----------------------------------------

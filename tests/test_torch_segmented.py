@@ -16,10 +16,10 @@ per segment, and a correction in the last segment.
 
 Across the two packages these must be equal: the gate that each event
 met (from the runners' verbose lines), the corrections (frame, keyframe
-slot, candidate slot), the event count, and the live anchor each segment
-starts from (within 1e-6): the JAX runner dispatches a segment again
-after a correction, the port runs its segments in order, so each segment
-the port runs from a corrected carry is JAX's re-dispatch.
+slot, candidate slot), the event count, and the scan calls one for one:
+both runners dispatch segment s+1 before they read segment s and
+dispatch it again after a correction, so each call has the same segment,
+live anchor (within 1e-6) and consistency chains in both.
 """
 
 import re
@@ -37,7 +37,6 @@ from orb_slam2_ssd_semantic_tpu.mapping.map_state import empty_state as j_empty_
 from orb_slam2_ssd_semantic_tpu.tracking import scan_tracker as jst
 from orb_slam2_ssd_semantic_tpu.tracking import segmented as jseg
 from orb_slam2_ssd_semantic_tpu_torch.mapping import loop_closing as tlc
-from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import LocalMappingRunner
 from orb_slam2_ssd_semantic_tpu_torch.tracking.graphed_track import TrackStepRunner
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import empty_state as t_empty_state
 from orb_slam2_ssd_semantic_tpu_torch.tracking import scan_tracker as tst
@@ -200,7 +199,7 @@ def _port_run(mode, monkeypatch, capsys):
                              last_kp_point=None, velocity=None, frames_since_kf=0,
                              ref_kf_inliers=0, frame_idx=1, word_db=None, val_db=None,
                              cons_count=torch.zeros((F,), dtype=torch.int32),
-                             mapper=LocalMappingRunner(CPU), track=TrackStepRunner(CPU))
+                             branch=tst.KeyframeBranchRunner(CPU), track=TrackStepRunner(CPU))
 
     def scan(carry, grays, depths, cfg, with_rel=False, **kw):
         s = (int(grays[0, 0, 0]) - 1) // S
@@ -251,17 +250,20 @@ def test_segmented_runner_matches_jax(mode, monkeypatch, capsys):
     np.testing.assert_array_equal(tres.stats, jres.stats)
     np.testing.assert_allclose(tres.T_all, jres.T_all, atol=1e-6)
 
-    # JAX runs every segment once, plus once more from the corrected carry
-    # when a correction lands before the last segment; the port runs each
-    # once, from the carry as corrected.
-    assert [s for s, _, _ in tcalls] == list(range(N_SEG))
+    # Both run every segment once, plus once more from the corrected carry
+    # when a correction lands before the last segment: the same calls, in
+    # the same order, from the same carries.
+    assert [(s, c) for s, _, c in tcalls] == [(s, c) for s, _, c in jcalls]
+    for (_, a, _), (_, b, _) in zip(tcalls, jcalls):
+        np.testing.assert_allclose(a, b, atol=1e-6)
     jfix, tfix = _from_corrected(jcalls), _from_corrected(tcalls)
     assert [s for s, _ in tfix] == [s for s, _ in jfix]
     assert len(jcalls) == N_SEG + len(jfix)
     for (_, a), (_, b) in zip(tfix, jfix):
         np.testing.assert_allclose(a, b, atol=1e-6)
     # A corrected carry starts with its consistency chains reset.
-    assert all(c == 0 for s, T, c in tcalls if s > 0 and any(s == f for f, _ in tfix))
+    assert all(c == 0 for s, T, c in tcalls
+               if s > 0 and not np.array_equal(T, segment_script(s - 1)["last_T_cw"]))
     np.testing.assert_allclose(tres.carry.last_T_cw.numpy(), np.asarray(jres.carry.last_T_cw),
                                atol=1e-6)
     kinds = {g for _, g in gates}
@@ -323,7 +325,7 @@ def test_runner_hands_the_masks_to_every_segment(use_flow, use_geom, monkeypatch
                              last_kp_point=None, velocity=None, frames_since_kf=0,
                              ref_kf_inliers=0, frame_idx=1, word_db=None, val_db=None,
                              cons_count=torch.zeros((F,), dtype=torch.int32),
-                             mapper=LocalMappingRunner(CPU), track=TrackStepRunner(CPU),
+                             branch=tst.KeyframeBranchRunner(CPU), track=TrackStepRunner(CPU),
                              geom_db="ring 0")
 
     def scan(carry, grays, depths, cfg, with_rel=False, **kw):

@@ -297,3 +297,26 @@ def test_track_runner_raises_where_the_step_reads_an_undeclared_leaf(runs, monke
     with pytest.raises(RuntimeError, match=r"state\.points\.pos"):
         TrackStepRunner("cpu").step(tt.state, gray, depth, tt.last_frame, tt.last_T_cw,
                                     tt.last_kp_point, tt.velocity, 0, 1, cfg)
+
+
+@pytest.mark.parametrize("spawn_all", [False, True], ids=["keyframe", "spawn_all"])
+def test_insert_runner_equals_eager_insert_keyframe(runs, spawn_all):
+    """`InsertKeyframeRunner` (`Tracker.process` and `init_scan` insert
+    through it) on the port's state after the run and its last frame:
+    every leaf equal to the eager `insert_keyframe`'s, its inputs left
+    as they were, and nothing returned shared with the runner's buffers."""
+    tracker = runs[2]
+    cfg = small_config(tconfig)
+    args = (tracker.state, tracker.last_frame, tracker.last_T_cw, tracker.last_kp_point)
+    before = [(t, t.clone()) for _, t in state_leaves(args, "in")]
+    runner = graphed_track.InsertKeyframeRunner("cpu")
+    out = runner.step(*args, N_FRAMES, float(N_FRAMES), cfg, spawn_all=spawn_all)
+    with highest_precision():
+        eager = ttk.insert_keyframe(*args, N_FRAMES, float(N_FRAMES), cfg, spawn_all=spawn_all)
+    got, want = state_leaves(out, "out"), state_leaves(eager, "out")
+    assert [p for p, _ in got] == [p for p, _ in want]
+    assert [p for (p, a), (_, b) in zip(got, want) if not torch.equal(a, b)] == []
+    assert all(torch.equal(t, c) for t, c in before)
+    buffers = {t.data_ptr() for _, t in state_leaves(runner.graphs()[0].out, "buf")}
+    assert not buffers & {t.data_ptr() for _, t in got}
+    assert int(out[0].n_kfs) == int(tracker.state.n_kfs) + 1
