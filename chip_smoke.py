@@ -174,25 +174,48 @@ phase 14 phase 10's views and phase 7's map.
         without noise on the card and on the CPU by the same function:
         depth within 1 mm on >= 99.9% of pixels, gray within 1 level on
         >= 99% (the CPU test's limits); ms a frame on the card;
-     b. the flow mask (`flow_dynamic_mask_fitted`) and the geometry mask
+     b. `sym_eig` (`csrc/sym_eig.cu`, the homography DLT's eigensolver)
+        against `torch.linalg.eigh` on the card, on the flow mask's own
+        (128, 9, 9) and (9, 9) systems of both MASK_PAIRS and on seeded
+        degenerate minimal sets (a repeated row, collinear points):
+        eigenvalues within 1e-5 of each matrix's Frobenius norm, each
+        eigenvector with a relative gap over 1e-3 within 1 - |v . v_ref|
+        <= 1e-4, and `_dlt`'s homography within 1e-4 (relative) of the
+        plain version's where the null vector is so separated; its
+        launch-to-end and on-device ms, the library call's and the bound;
+        the flow mask (`flow_dynamic_mask_fitted`) and the geometry mask
         (`geometry_dynamic_mask`) on 9a's frames, on the card and on a CPU
         copy of their inputs with the same minimal sets: at most 0.5% of
         pixels differ (the CPU parity test's limit against JAX); each
-        mask's ms on the card;
+        mask's ms on the card; `MaskRunner`'s two graphs equal to the eager
+        masks bit for bit, the flow graph holding `sym_eig` twice, each
+        graph's capture and pool, and a replay's host and synchronized ms
+        (timed before any profiler session in the process);
      c. `tests/test_accuracy_gates.py`'s dynamic runs at 640x480 through
         `Tracker.process`: 20 frames of the static and of the 2-object
         dynamic scene, `max_frames_between_kfs=4`, loop closing and
         relocalization off, four runs (static, unmasked, flow, geometry),
         that test's gates as written (unmasked > 1.25 x static; flow <
         unmasked + 0.25 x static; geometry < unmasked; geometry < 1.9 x
-        static); the `mask.flow` and `mask.geometry` stage times, the
-        launches and syncs of a profiled steady masked frame;
+        static); each mask's replay under CUDA's sync debug mode "error";
+        the `mask.flow`, `mask.geometry` and `mask.capture` stage times,
+        the launches and syncs of a profiled steady masked frame, and in
+        its `mask.flow` or `mask.geometry` range one graph launch and no
+        wait;
      d. `track_sequence_segmented` on 9a's frames at `bench.py`'s
         `cfg_dyn` (its widths, `min_static_area=0.45`) with the named
         vocabulary, three runs (unmasked, `use_flow`, `use_geom`): no
         frame LOST, the masked runs' resolved ATE under 0.15 m
         (`bench.py`'s gate), geometry <= unmasked; the unmasked run's ATE
-        is logged, not gated;
+        is logged, not gated; frames/s beside the parent tree's (eager
+        masks, WALK_FPS_BEFORE);
+     e. frames 13-48 of 9a's walker scene as one segment of the scan with
+        both masks, from a carry that tracked frames 1-12, traced whole
+        with the segmented runner's fetch: one wait and one device-to-host
+        copy, no host-to-device copy, four graph launches a frame (the two
+        masks, the tracking step, the keyframe branch), `sym_eig` twice a
+        frame; the same bits as the segment untraced before it;
+     9b's comparisons are not counted: the counters are zeroed after 9b;
  10. semantics (counts zeroed before, read after; B1's launches here are
      `launches_semantic`), with the seeded full-width SSDLite
      (`init_ssdlite(21, seed=0)`, made on the CPU and passed explicitly: a
@@ -330,7 +353,7 @@ phase 14 phase 10's views and phase 7's map.
  15. one JSON line of per-kernel numbers, the card's name and power limit,
      and the result line last.
 
-Launches: B1's and B2's wrappers count their calls (`ops/cuda_build.py`
+Launches: B1's, B2's and `sym_eig`'s wrappers count their calls (`ops/cuda_build.py`
 also counts those made into a CUDA graph being captured), and a replay of
 a graph (`mapping/graphed_step.py::GraphedStep`: every tracked frame
 replays the tracking step's, every local-mapping call local mapping's)
@@ -413,6 +436,7 @@ from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import (
     geometry_dynamic_mask,
     insert_ref_view,
 )
+from orb_slam2_ssd_semantic_tpu_torch.dynamic.graphed_masks import MaskRunner
 from orb_slam2_ssd_semantic_tpu_torch.eval.ate import evaluate_ate_xyz
 from orb_slam2_ssd_semantic_tpu_torch.frontend import extractor
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
@@ -454,7 +478,14 @@ from orb_slam2_ssd_semantic_tpu_torch.mapping.pose_graph import (
     optimize_pose_graph_pcg,
     optimize_pose_graph_sim3,
 )
-from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build, cuda_match, cuda_solve, orb_descriptor
+from orb_slam2_ssd_semantic_tpu_torch.ops import (
+    cuda_build,
+    cuda_eigh,
+    cuda_match,
+    cuda_solve,
+    orb_descriptor,
+)
+from orb_slam2_ssd_semantic_tpu_torch.ops import homography
 from orb_slam2_ssd_semantic_tpu_torch.ops import image as image_ops
 from orb_slam2_ssd_semantic_tpu_torch.ops.homography import sample_minimal_sets
 from orb_slam2_ssd_semantic_tpu_torch.ops.match import popcount32, window_mask
@@ -658,6 +689,22 @@ MASK_PIXEL_TOL = 0.005
 DYN_FRAMES, DYN_KF_GAP = 20, 4
 DYN_PROFILE_FRAMES = range(12, 14)
 WALK_ATE_GATE = 0.15
+# 9b's limits for `sym_eig` against `torch.linalg.eigh`: eigenvalues within
+# SYM_EIG_TOL of the matrix's Frobenius norm; an eigenvector whose
+# eigenvalue lies more than SYM_EIG_GAP of the largest magnitude from the
+# others within 1 - |v . v_ref| <= SYM_EIG_VEC_TOL; where the null vector
+# is so separated, `_dlt`'s homography within SYM_EIG_H_TOL of the plain
+# version's, relative to its largest entry.
+SYM_EIG_TOL, SYM_EIG_GAP, SYM_EIG_VEC_TOL, SYM_EIG_H_TOL = 1e-5, 1e-3, 1e-4, 1e-4
+# 9e: one segment of SEG_LEN frames of 9a's walker scene with both masks,
+# after frames 1-12 from `init_scan` (every graph captured there).
+MASK_TRACE_FRAMES = range(13, 13 + SEG_LEN)
+# 9d's frames/s with the eager masks, for the log: the parent tree's 9d
+# (`run_masked_segmented` after 9a, in a process of its own, run before
+# and after this tree's in one call; H100 80GB HBM3, 700.00 W). In this
+# script 9d runs after 9b in a warmer process, so only the masked runs'
+# ratios to the unmasked one compare.
+WALK_FPS_BEFORE = {"unmasked": [7.25, 7.53], "flow": [13.53, 13.11], "geom": [19.15, 22.02]}
 # Phase 10 (semantics). The scene: the default orbit's room and seed,
 # with `bench.py`'s SEM_FLAT_BOXES gray levels of classes 2, 1 and 3 on
 # three boxes of this room that the orbit sees (the bench's indices name
@@ -849,6 +896,7 @@ def _bound_ms(n_bytes: float, n_ops: float):
 def _reset_counts() -> None:
     cuda_match.window_match.launches = 0
     cuda_solve.spd_solve.launches = 0
+    cuda_eigh.eigh_small.launches = 0
     cuda_build.captured.clear()
     cuda_build.conditional.clear()
     _REPLAYED.update(dict.fromkeys(_REPLAYED, 0))
@@ -860,27 +908,29 @@ def _reset_counts() -> None:
 
 def _counts() -> dict:
     return {"window_match": cuda_match.window_match.launches,
-            "spd_solve": cuda_solve.spd_solve.launches}
+            "spd_solve": cuda_solve.spd_solve.launches,
+            "sym_eig": cuda_eigh.eigh_small.launches}
 
 
 def _captured_counts() -> dict:
     """The wrappers' launches into a CUDA graph being captured since the
     last `_reset_counts`, those into its conditional bodies included."""
     return {k: cuda_build.captured.get(k, 0) + cuda_build.conditional.get(k, 0)
-            for k in ("window_match", "spd_solve")}
+            for k in _REPLAYED}
 
 
-# B1's and B2's kernels by the names the card's trace gives them; a call of
-# B1's wrapper launches the first two.
+# B1's, B2's and `sym_eig`'s kernels by the names the card's trace gives
+# them; a call of B1's wrapper launches the first two.
 _TRACED_KERNELS = {"window_match": "window_match_partial_kernel",
                    "window_match_merge": "window_match_merge_kernel",
-                   "spd_solve": "spd_solve_kernel"}
+                   "spd_solve": "spd_solve_kernel",
+                   "sym_eig": "sym_eig_kernel"}
 
 
 def _traced_launches(prof) -> dict:
-    """How many times B1's two kernels and B2's ran on the card in a
-    profile, counted from its device events (a graph's replay included,
-    which calls no wrapper)."""
+    """How many times B1's two kernels, B2's and `sym_eig`'s ran on the card
+    in a profile, counted from its device events (a graph's replay
+    included, which calls no wrapper)."""
     out = dict.fromkeys(_TRACED_KERNELS, 0)
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
@@ -892,18 +942,19 @@ def _traced_launches(prof) -> dict:
 
 def _check_traced(label: str, traced: dict, want: dict) -> None:
     """Raise unless the trace ran B1's two kernels `want["window_match"]`
-    times each and B2's `want["spd_solve"]` times."""
+    times each, B2's `want["spd_solve"]` times and `sym_eig`'s
+    `want["sym_eig"]` (0 when not given)."""
     expected = dict(window_match=want["window_match"], window_match_merge=want["window_match"],
-                    spd_solve=want["spd_solve"])
+                    spd_solve=want["spd_solve"], sym_eig=want.get("sym_eig", 0))
     if traced != expected:
-        raise AssertionError(f"{label}: the card ran {traced} of B1's and B2's kernels, "
-                             f"{expected} expected")
+        raise AssertionError(f"{label}: the card ran {traced} of B1's, B2's and sym_eig's "
+                             f"kernels, {expected} expected")
 
 
 # B1's and B2's launches that replays of CUDA graphs ran on the card since
 # the last `_reset_counts`: a replay runs the launches its graph's capture
 # recorded and calls no wrapper, so the wrapper counters do not see them.
-_REPLAYED = {"window_match": 0, "spd_solve": 0}
+_REPLAYED = {"window_match": 0, "spd_solve": 0, "sym_eig": 0}
 
 
 def _count_replays() -> None:
@@ -1427,7 +1478,7 @@ def main_path_config() -> SlamConfig:
 # The port's host ranges (`record_function`): the trace also draws each on
 # the device's timeline, which is no kernel.
 _HOST_RANGES = ("scan.segment", "track", "track.capture", "keyframe.insert", "local_mapping",
-                "local_mapping.capture")
+                "local_mapping.capture", "mask.flow", "mask.geometry", "mask.capture")
 
 
 def _device_breakdown(prof, n_frames: int, frame_ms: float) -> dict:
@@ -3255,6 +3306,129 @@ def check_render(dev, cam: CameraConfig, n_frames: int, card: str) -> dict:
     return dict(res=res, seq=seq, grays=g, depths=d)
 
 
+def _eig_gaps(lam: torch.Tensor) -> torch.Tensor:
+    """Each eigenvalue's distance to the nearest other over the largest
+    magnitude, for ascending eigenvalues (..., n)."""
+    d = lam[..., 1:] - lam[..., :-1]
+    inf = torch.full_like(lam[..., :1], float("inf"))
+    return (torch.minimum(torch.cat([inf, d], -1), torch.cat([d, inf], -1))
+            / lam.abs().amax(-1, keepdim=True))
+
+
+def degenerate_minimal_sets(dev, seed: int = 5):
+    """Normalised 4-point sets, 16 with a repeated row (sets are drawn with
+    replacement), 16 with three collinear points and 16 well-posed ones (a
+    jittered square), mapped by a fixed homography with 1e-3 of noise:
+    `_dlt`'s (src, dst, w) for the batch (48, 4)."""
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((48, 4, 2)).astype(np.float32)
+    square = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float32)
+    src[32:] = square + 0.2 * rng.standard_normal((16, 4, 2)).astype(np.float32)
+    src[:16, 3] = src[:16, 1]
+    t = rng.random((16, 1)).astype(np.float32)
+    src[16:32, 2] = src[16:32, 0] + t * (src[16:32, 1] - src[16:32, 0])
+    H = np.array([[1.02, 0.03, 0.1], [-0.02, 0.98, -0.05], [0.01, -0.02, 1.0]], np.float32)
+    ph = np.concatenate([src, np.ones((48, 4, 1), np.float32)], -1) @ H.T
+    dst = (ph[..., :2] / ph[..., 2:]).astype(np.float32)
+    dst += rng.standard_normal(dst.shape).astype(np.float32) * 1e-3
+    return (torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev),
+            torch.ones((48, 4), dtype=torch.float32, device=dev))
+
+
+def check_sym_eig(dev, scene: dict, card: str) -> dict:
+    """9b: `sym_eig` (`ops/cuda_eigh.eigh_small`) against `torch.linalg.eigh`
+    on the card, on the systems the flow mask hands it on MASK_PAIRS (the
+    128 minimal sets and the refit of each pair) and on
+    `degenerate_minimal_sets`: eigenvalues, eigenvectors and `_dlt`'s
+    homography against the plain version's (`homography.eigh_small`
+    swapped for `eigh_small_reference`), at the SYM_EIG_* limits; then the
+    kernel's times at the flow mask's two shapes, beside the plain
+    version's, the library call's and the bound."""
+    cfg = DynamicConfig()
+    g = scene["grays"]
+    calls = []
+    dlt = homography._dlt
+
+    def recorded(src, dst, w):
+        calls.append((src, dst, w))
+        return dlt(src, dst, w)
+
+    homography._dlt = recorded
+    try:
+        with highest_precision():
+            for a, b in MASK_PAIRS:
+                flow_dynamic_mask_fitted(g[a].float(), g[b].float(), cfg)
+    finally:
+        homography._dlt = dlt
+    calls.append(degenerate_minimal_sets(dev))
+    labels = [f"pair {a}-{b} {kind}" for a, b in MASK_PAIRS for kind in ("minimal sets", "refit")]
+    labels.append("degenerate minimal sets")
+    systems = []
+
+    def keep(M):
+        systems.append(M)
+        return cuda_eigh.eigh_small(M)
+
+    rows = []
+    try:
+        with highest_precision():
+            for label, args in zip(labels, calls):
+                homography.eigh_small = keep
+                H_k = dlt(*args)
+                homography.eigh_small = cuda_eigh.eigh_small_reference
+                H_p = dlt(*args)
+                M = systems[-1]
+                w, v = cuda_eigh.eigh_small(M)
+                wr, vr = torch.linalg.eigh(M)
+                nrm = torch.linalg.norm(M, dim=(-1, -2))
+                held = _eig_gaps(wr) > SYM_EIG_GAP
+                vec = torch.where(held, 1 - (v * vr).sum(-2).abs(), torch.zeros_like(w))
+                h_err = ((H_k - H_p).abs().amax((-1, -2)) / H_p.abs().amax((-1, -2)))
+                h_err = torch.where(held[..., 0], h_err, torch.zeros_like(h_err))
+                rows.append(dict(
+                    systems=label, shape=list(M.shape),
+                    eig_err=float(((w - wr).abs().amax(-1) / nrm).max()),
+                    vec_err=float(vec.max()), h_err=float(h_err.max()),
+                    null_vectors_held=int(held[..., 0].sum()),
+                    max_abs_err=float((w - wr).abs().max())))
+    finally:
+        homography.eigh_small = cuda_eigh.eigh_small
+    _log("9b sym_eig against torch.linalg.eigh: " + json.dumps(rows) + f"; limits eigenvalues "
+         f"{SYM_EIG_TOL} of |M|_F, eigenvectors {SYM_EIG_VEC_TOL} where the gap is over "
+         f"{SYM_EIG_GAP}, H {SYM_EIG_H_TOL}; card: {card}")
+    for r in rows:
+        if not (r["eig_err"] <= SYM_EIG_TOL and r["vec_err"] <= SYM_EIG_VEC_TOL
+                and r["h_err"] <= SYM_EIG_H_TOL):
+            raise AssertionError(f"9b: sym_eig on the {r['systems']} beyond its limits: {r}")
+    if not all(r["null_vectors_held"] for r in rows):
+        raise AssertionError(f"9b: a batch with no separated null vector: vacuous: {rows}")
+
+    times = {}
+    for name, M in (("minimal_sets", systems[0]), ("refit", systems[1])) if dev.type == "cuda" \
+            else ():
+        n, batch = M.shape[-1], M.reshape(-1, M.shape[-1], M.shape[-1]).shape[0]
+        prepared, _, _ = cuda_eigh.prepare(M)
+        # An eigensolver with its vectors needs about 9 n^3 flops a matrix
+        # (symmetric QR, Golub and Van Loan), whatever the kernel does; M
+        # read once, the eigenvalues and vectors written once.
+        bound, by = _bound_ms(4.0 * batch * (2 * n * n + n), 9.0 * n**3 * batch)
+        times[name] = dict(
+            shape=list(M.shape), ms=_time_ms(lambda: cuda_eigh.launch(prepared)),
+            device_ms=_graph_ms(lambda: cuda_eigh.eigh_small(M)),
+            wrapper_ms=_time_ms(lambda: cuda_eigh.eigh_small(M)),
+            host_prepare_ms=_host_ms(lambda: cuda_eigh.prepare(M)),
+            host_launch_ms=_host_ms(lambda: cuda_eigh.launch(prepared)),
+            plain_ms=_time_ms(lambda: cuda_eigh.eigh_small_reference(M)),
+            library_ms=_time_ms(lambda: torch.linalg.eigh(M)), bound_ms=bound, bound_by=by)
+    _log("9b sym_eig times (ms; `ms` launch to end, `device_ms` the wrapper's work replayed "
+         "from a graph, `plain_ms` and `library_ms` torch.linalg.eigh): " + json.dumps(times)
+         + f"; card: {card}")
+    main = dict(times.get("minimal_sets", {}))
+    main.update(max_abs_err=max(r["max_abs_err"] for r in rows[:-1]), checks=rows,
+                refit=times.get("refit"))
+    return main
+
+
 def check_masks(dev, cam: CameraConfig, scene: dict, card: str) -> dict:
     """9b: both masks on 9a's frames on the card against a CPU copy of
     their inputs (the flow mask with the card's minimal sets), and each
@@ -3308,7 +3482,67 @@ def check_masks(dev, cam: CameraConfig, scene: dict, card: str) -> dict:
                                      f"{r['differ']:.5f} of pixels (limit {MASK_PIXEL_TOL})")
         if not any(r["dynamic"] > 0 for r in rows):
             raise AssertionError(f"9b: the {kind} mask marked no pixel dynamic: vacuous")
+    out["graphs"] = check_mask_graphs(dev, cam, scene, dbs[0], T_cw, card)
     return out
+
+
+def _graph_record(graph: GraphedStep) -> dict:
+    """A `GraphedStep`'s capture: host ms (and of them the first replay's,
+    which uploads the graph), its pools' MiB, replays, and the launches by
+    kernel that the capture recorded."""
+    return dict(capture_ms=graph.capture_ms, upload_ms=graph.upload_ms,
+                pool_mib=graph.pool_bytes / 2**20, replays=graph.replays,
+                captured=dict(graph.captured))
+
+
+def check_mask_graphs(dev, cam: CameraConfig, scene: dict, db, T_cw: list, card: str) -> dict:
+    """9b: `MaskRunner`'s two graphs on the card against the eager masks on
+    MASK_PAIRS (equal bit for bit), each graph's capture and pool, and,
+    before any profiler session of the script, what a replay costs the
+    host (`dispatch_ms`) and in all (`synced_ms`, ending in a
+    synchronize), beside the eager mask's synchronized ms."""
+    cfg = DynamicConfig()
+    g, d = scene["grays"], scene["depths"]
+    runner = MaskRunner(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    res = dict(equal=[])
+    calls = {}
+    with highest_precision():
+        for a, b in MASK_PAIRS:
+            prev, cur = g[a].float(), g[b].float()
+            depth_m = d[b].float() * 1e-3
+            T = torch.from_numpy(T_cw[b]).to(dev)
+            calls = {
+                "flow": (lambda: runner.flow(prev, cur, cfg),
+                         lambda: flow_dynamic_mask_fitted(prev, cur, cfg)),
+                "geometry": (lambda: runner.geometry(db, T, depth_m, cam, cfg),
+                             lambda: geometry_dynamic_mask(db, T, depth_m, cam, cfg))}
+            res["equal"].append({k: bool(torch.equal(graphed(), eager()))
+                                 for k, (graphed, eager) in calls.items()})
+        for kind, (graphed, eager) in calls.items():
+            graph = runner.graphs()[0 if kind == "flow" else 1]
+            dispatch, synced, eager_ms = [], [], []
+            for _ in range(TRACK_REPEATS):
+                sync()
+                t = time.perf_counter()
+                graphed()
+                dispatch.append((time.perf_counter() - t) * 1e3)
+                sync()
+                synced.append((time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+                eager()
+                sync()
+                eager_ms.append((time.perf_counter() - t) * 1e3)
+            res[kind] = dict(_graph_record(graph), dispatch_ms=statistics.median(dispatch),
+                             synced_ms=statistics.median(synced),
+                             eager_synced_ms=statistics.median(eager_ms))
+    _log("9b mask graphs: " + json.dumps(res) + f"; card: {card}")
+    if not all(all(e.values()) for e in res["equal"]):
+        raise AssertionError(f"9b: a mask graph's replay differs from the eager mask: {res}")
+    if dev.type == "cuda" and res["flow"]["captured"].get("sym_eig") != 2:
+        raise AssertionError(f"9b: the flow graph recorded {res['flow']['captured']}, not "
+                             "sym_eig twice")
+    return res
 
 
 def dynamic_configs(cam: CameraConfig) -> dict:
@@ -3326,9 +3560,11 @@ def dynamic_configs(cam: CameraConfig) -> dict:
 
 def check_masked_tracking(dev, cam: CameraConfig, card: str, frames: dict | None = None) -> dict:
     """9c: the four dynamic runs through `Tracker.process` and their
-    gates; stage times, and a profiled steady frame of each masked run.
-    `frames`: the static and dynamic scenes' frames at `cam` (rendered
-    here in a pool of their own when None)."""
+    gates; stage times, and a profiled steady frame of each masked run,
+    whose `mask.flow` or `mask.geometry` range must hold one graph launch
+    and no wait; on the card each mask's replay runs under CUDA's sync
+    debug mode "error". `frames`: the static and dynamic scenes' frames
+    at `cam` (rendered here in a pool of their own when None)."""
     if frames is None:
         ctx = multiprocessing.get_context("spawn")
         tasks = [(k, i) for k in ("static", "dynamic") for i in range(DYN_FRAMES)]
@@ -3340,41 +3576,31 @@ def check_masked_tracking(dev, cam: CameraConfig, card: str, frames: dict | None
         _log(f"9c: rendered {len(tasks)} frames in {time.perf_counter() - t0:.1f} s")
     seq = SyntheticSequence(n_frames=DYN_FRAMES, cam=cam)
     gt = seq.gt_positions()
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
     runs = {}
-    for name, cfg in dynamic_configs(cam).items():
-        tracker = Tracker(cfg, device=dev)
-        profiled = DYN_PROFILE_FRAMES if dev.type == "cuda" and name in ("flow", "geom") \
-            else range(0)
-        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                  torch.profiler.ProfilerActivity.CUDA]
-                                      ) if len(profiled) else None
-        frame_ms = []
-        for i, (gray, depth) in enumerate(frames["static" if name == "static" else "dynamic"]):
-            if len(profiled) and i == profiled.start:
-                prof.start()
-            sync()
-            t = time.perf_counter()
-            tracker.process(gray, depth, float(seq.stamps[i]))
-            sync()
-            frame_ms.append((time.perf_counter() - t) * 1e3)
-            if len(profiled) and i == profiled[-1]:
-                prof.stop()
-        stages = tracker.metrics.stages
-        kf = [i for i in range(1, len(tracker.stats))
-              if tracker.stats[i]["kfs"] != tracker.stats[i - 1]["kfs"]]
-        r = dict(ate_m=evaluate_ate_xyz(tracker.camera_positions(), gt).rmse,
-                 statuses=[s["status"] for s in tracker.stats], keyframe_frames=kf,
-                 median_frame_ms=statistics.median(frame_ms[1:]))
-        for st in ("mask.flow", "mask.geometry"):
-            if st in stages:
-                r[f"{st}_mean_ms"] = stages[st].total_s * 1e3 / stages[st].count
-                r[f"{st}_count"] = stages[st].count
-        if len(profiled):
-            r["profile"] = _device_breakdown(prof, len(profiled), r["median_frame_ms"])
-            r["profiled_frames"] = [profiled.start, profiled[-1]]
-        runs[name] = r
-        _log(f"9c {name}: " + json.dumps(r) + f"; card: {card}")
+    flow_step, geom_step = MaskRunner.flow, MaskRunner.geometry
+
+    def no_wait(step):
+        # A mask's replay: from the copies into its graph's inputs to its
+        # output's clone any wait on the card raises (its capture, which
+        # synchronizes, runs before in stage `mask.capture`).
+        def run(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    if on_card:
+        MaskRunner.flow, MaskRunner.geometry = no_wait(flow_step), no_wait(geom_step)
+    try:
+        for name, cfg in dynamic_configs(cam).items():
+            runs[name] = _masked_run(dev, name, cfg, frames, seq, gt, sync)
+            _log(f"9c {name}: " + json.dumps(runs[name]) + f"; card: {card}")
+    finally:
+        MaskRunner.flow, MaskRunner.geometry = flow_step, geom_step
     ate = {k: v["ate_m"] for k, v in runs.items()}
     gates = {
         "unmasked > 1.25 x static": ate["unmasked"] > 1.25 * ate["static"],
@@ -3389,7 +3615,56 @@ def check_masked_tracking(dev, cam: CameraConfig, card: str, frames: dict | None
     if runs["flow"].get("mask.flow_count") != DYN_FRAMES - 1 \
             or runs["geom"].get("mask.geometry_count") != DYN_FRAMES - 1:
         raise AssertionError("9c: a mask stage did not run on every frame after the first")
+    for name, stage in (("flow", "mask.flow"), ("geom", "mask.geometry")):
+        r = runs[name].get("mask_ranges", {}).get(stage)
+        if r is None:
+            continue
+        if any(k in _SYNC_CALLS for k in r) or r.get("cudaGraphLaunch") != 1:
+            raise AssertionError(f"9c {name}: a steady frame's {stage} range made {r}, not one "
+                                 "graph launch and no wait")
     return dict(runs=runs, ate=ate)
+
+
+def _masked_run(dev, name: str, cfg: SlamConfig, frames: dict, seq, gt, sync) -> dict:
+    """One of 9c's four `Tracker.process` runs: ATE, statuses, keyframes,
+    frame and stage times, and for a masked run on the card a profile of
+    DYN_PROFILE_FRAMES with the runtime calls of each mask's range a
+    frame."""
+    tracker = Tracker(cfg, device=dev)
+    profiled = DYN_PROFILE_FRAMES if dev.type == "cuda" and name in ("flow", "geom") \
+        else range(0)
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA]
+                                  ) if len(profiled) else None
+    frame_ms = []
+    for i, (gray, depth) in enumerate(frames["static" if name == "static" else "dynamic"]):
+        if len(profiled) and i == profiled.start:
+            prof.start()
+        sync()
+        t = time.perf_counter()
+        tracker.process(gray, depth, float(seq.stamps[i]))
+        sync()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        if len(profiled) and i == profiled[-1]:
+            prof.stop()
+    stages = tracker.metrics.stages
+    kf = [i for i in range(1, len(tracker.stats))
+          if tracker.stats[i]["kfs"] != tracker.stats[i - 1]["kfs"]]
+    r = dict(ate_m=evaluate_ate_xyz(tracker.camera_positions(), gt).rmse,
+             statuses=[s["status"] for s in tracker.stats], keyframe_frames=kf,
+             median_frame_ms=statistics.median(frame_ms[1:]))
+    for st in ("mask.flow", "mask.geometry", "mask.capture"):
+        if st in stages:
+            r[f"{st}_mean_ms"] = stages[st].total_s * 1e3 / stages[st].count
+            r[f"{st}_count"] = stages[st].count
+    if tracker._mask_runner is not None:
+        r["mask_graphs"] = [_graph_record(g) for g in tracker.mask_runner().graphs()]
+    if len(profiled):
+        r["profile"] = _device_breakdown(prof, len(profiled), r["median_frame_ms"])
+        r["profiled_frames"] = [profiled.start, profiled[-1]]
+        r["mask_ranges"] = {st: {k: v / len(profiled) for k, v in _runtime_in(prof, st).items()}
+                            for st in ("mask.flow", "mask.geometry")}
+    return r
 
 
 def walker_config(vocabulary_path, cam: CameraConfig) -> SlamConfig:
@@ -3439,8 +3714,99 @@ def run_masked_segmented(dev, cam: CameraConfig, scene: dict, card: str) -> dict
                              f"unmasked {runs['unmasked']['ate_resolved_m']:.4f} m")
     _log(f"9d resolved ATE: unmasked {runs['unmasked']['ate_resolved_m']:.6f} m (logged, not "
          f"gated), flow {runs['flow']['ate_resolved_m']:.6f} m, geometry "
-         f"{runs['geom']['ate_resolved_m']:.6f} m; card: {card}")
+         f"{runs['geom']['ate_resolved_m']:.6f} m; frames/s "
+         + ", ".join(f"{k} {r['fps_wall']:.2f} (eager masks: {WALK_FPS_BEFORE[k]})"
+                     for k, r in runs.items()) + f"; card: {card}")
     return runs
+
+
+def check_masked_segment_trace(dev, cam: CameraConfig, scene: dict, card: str) -> dict:
+    """9e: MASK_TRACE_FRAMES of 9a's walker scene as one segment of the scan
+    with `use_flow` and `use_geom` (from a carry that tracked the frames
+    before them, so that every graph is captured), untraced and then under
+    the profiler, each with the segmented runner's pack and fetch. Holds
+    the traced segment as 8c holds its own: one wait and one device-to-host
+    copy (the fetch), no host-to-device copy; and four graph launches a
+    frame (the two masks, the tracking step, the keyframe branch) and
+    `sym_eig` twice a frame (the flow graph's two systems) in the trace.
+    The two runs give the same bits."""
+    from orb_slam2_ssd_semantic_tpu_torch.tracking import segmented as seg_mod
+
+    g, d = scene["grays"], scene["depths"]
+    cfg = walker_config(None, cam)
+    lo, hi = MASK_TRACE_FRAMES.start, MASK_TRACE_FRAMES.stop
+    n = hi - lo
+    kw = dict(use_flow=True, use_geom=True, with_rel=True)
+    carry = scan_tracker.init_scan(map_state.empty_state(cfg, dev), g[0], d[0], cfg,
+                                   use_geom=True)
+    carry, *_ = scan_tracker.track_sequence_scan(carry, g[1:lo], d[1:lo], cfg,
+                                                 prev_grays=g[:lo - 1], **kw)
+    torch.cuda.synchronize()
+
+    def segment():
+        t0 = time.perf_counter()
+        out, T, stats, rel, uid = scan_tracker.track_sequence_scan(
+            carry, g[lo:hi], d[lo:hi], cfg, prev_grays=g[lo - 1:hi - 1], **kw)
+        t_dispatch = time.perf_counter() - t0
+        kfs = out.state.kfs
+        packed = seg_mod._fetch(*seg_mod._start_fetch(seg_mod._pack_segment(
+            T, stats, rel, uid, kfs.uid, kfs.valid, kfs.frame_id)))
+        return packed, t_dispatch * 1e3 / n, (time.perf_counter() - t0) * 1e3 / n
+
+    packed_untraced, dispatch_ms, wall_ms = segment()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    with torch.profiler.record_function("scan.segment"):
+        packed, traced_dispatch_ms, traced_wall_ms = segment()
+    prof.stop()
+    events = prof.profiler.kineto_results.events()
+    a, b = next((e.start_ns(), e.end_ns()) for e in events if e.name() == "scan.segment"
+                and e.device_type() == torch.autograd.DeviceType.CPU)
+    waits = {}
+    for e in events:
+        if e.name() in _SYNC_CALLS and a <= e.start_ns() <= b:
+            waits[e.name()] = waits.get(e.name(), 0) + 1
+    device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+              and e.name() not in _HOST_RANGES and e.start_ns() >= a]
+    copies = {}
+    for e in device:
+        if e.name().startswith("Memcpy"):
+            kind = e.name().split()[1]
+            copies[kind] = copies.get(kind, 0) + 1
+    kernels = [e for e in device if not e.name().startswith(("Memcpy", "Memset"))]
+    runtime = _runtime_in(prof)
+    traced = {key: sum(1 for e in device if name in e.name())
+              for key, name in _TRACED_KERNELS.items()}
+    statuses = packed[n * 16:n * 20:4].astype(np.int64)
+    graphs = {name: [_graph_record(gr) for gr in runner.graphs()]
+              for name, runner in (("masks", carry.masks), ("track", carry.track),
+                                   ("branch", carry.branch))}
+    res = dict(frames=[lo, hi - 1], waits=waits, device_copies=copies,
+               graph_launches_per_frame=runtime.get("cudaGraphLaunch", 0) / n,
+               kernel_launches_per_frame=runtime.get("cudaLaunchKernel", 0) / n,
+               copies_per_frame=runtime.get("cudaMemcpyAsync", 0) / n,
+               kernels_per_frame=len(kernels) / n,
+               device_busy_ms_per_frame=sum(e.duration_ns() for e in kernels) / 1e6 / n,
+               traced=traced, host_dispatch_ms_per_frame=dispatch_ms,
+               wall_ms_per_frame=wall_ms, traced_host_dispatch_ms_per_frame=traced_dispatch_ms,
+               traced_wall_ms_per_frame=traced_wall_ms,
+               lost=int((statuses == 2).sum()), equal_untraced=bool(
+                   np.array_equal(packed, packed_untraced)), graphs=graphs)
+    _log("9e a masked segment traced whole: " + json.dumps(res) + f"; card: {card}")
+    if waits != {"cudaEventSynchronize": 1} or copies.get("DtoH") != 1 or copies.get("HtoD"):
+        raise AssertionError(f"9e: the segment waited {waits} and copied {copies}, not one wait "
+                             "and one device-to-host copy (the fetch)")
+    if runtime.get("cudaGraphLaunch") != 4 * n:
+        raise AssertionError(f"9e: {runtime.get('cudaGraphLaunch')} graph launches for {n} "
+                             "frames, not four a frame")
+    if traced["sym_eig"] != 2 * n:
+        raise AssertionError(f"9e: the trace ran sym_eig {traced['sym_eig']} times, {2 * n} "
+                             "expected")
+    if not res["equal_untraced"] or res["lost"]:
+        raise AssertionError(f"9e: the traced segment differs from the untraced one, or lost "
+                             f"frames: {res}")
+    return res
 
 
 def run_dynamic_path(dev, card: str, cam: CameraConfig | None = None,
@@ -3450,15 +3816,29 @@ def run_dynamic_path(dev, card: str, cam: CameraConfig | None = None,
     the caller (`main` runs it on views of the render pool)."""
     cam = cam or CameraConfig()
     t9 = time.perf_counter()
-    _reset_counts()
     scene = check_render(dev, cam, n_frames, card)
+    sym_eig = check_sym_eig(dev, scene, card)
     masks = check_masks(dev, cam, scene, card)
+    # The masked paths: 9b's comparisons and timings are not counted.
+    _reset_counts()
     tracked = check_masked_tracking(dev, cam, card) if masked_tracking else None
     seg = run_masked_segmented(dev, cam, scene, card)
+    # 9e after 9d: a profiler session makes every later graph launch
+    # costlier on the host (PERF.md), and 9d's frames/s are the host's.
+    trace = check_masked_segment_trace(dev, cam, scene, card) if dev.type == "cuda" else None
     counts = _path_launches("9: the masked runs", dev)
+    _check_sym_eig_ran("9", counts, dev)
     _log(f"phase 9 took {time.perf_counter() - t9:.1f} s, launches {json.dumps(counts)}; "
          f"card: {card}")
-    return dict(render=scene["res"], masks=masks, tracking=tracked, segmented=seg, **counts)
+    return dict(render=scene["res"], sym_eig=sym_eig, masks=masks, tracking=tracked,
+                segmented=seg, trace=trace, **counts)
+
+
+def _check_sym_eig_ran(label: str, counts: dict, dev) -> None:
+    """On the card, raise unless `sym_eig` ran in a graph's replay among a
+    masked path's launches (`_path_launches`)."""
+    if dev.type == "cuda" and not counts["launches_replayed"]["sym_eig"]:
+        raise AssertionError(f"{label} never ran sym_eig in a graph's replay: {counts}")
 
 
 # ---- phase 10: semantics through SlamSystem ----------------------------------
@@ -5296,6 +5676,7 @@ def main() -> int:
     _reset_counts()
     dyn["tracking"] = check_masked_tracking(dev, CameraConfig(), card, frames=rendered[5])
     dyn_9c = _path_launches("9c: the masked trackers", dev)
+    _check_sym_eig_ran("9c", dyn_9c, dev)
     for key, counts in dyn_9c.items():
         dyn[key] = {k: v + counts[k] for k, v in dyn[key].items()}
     _log(f"phase 9c took {time.perf_counter() - t9:.1f} s; launches in phase 9 "
@@ -5371,6 +5752,24 @@ def main() -> int:
              launches_mesh=mesh["launches"]["spd_solve"],
              launches_traced_replay=async_mapping["window_12_8"]["traced_replay"]["spd_solve"],
              path="local_mapping_step, window 12 + 8"),
+        dict(name="sym_eig", route="cuda",
+             source="orb_slam2_ssd_semantic_tpu_torch/csrc/sym_eig.cu",
+             replaces="orb_slam2_ssd_semantic_tpu/ops/homography.py:34",
+             pallas_counterpart=None,
+             launches=dyn["launches"]["sym_eig"], max_abs_err=dyn["sym_eig"]["max_abs_err"],
+             ms=dyn["sym_eig"]["ms"], plain_ms=dyn["sym_eig"]["plain_ms"],
+             bound_ms=dyn["sym_eig"]["bound_ms"], bound_by=dyn["sym_eig"]["bound_by"],
+             library_ms=dyn["sym_eig"]["library_ms"], shape=dyn["sym_eig"]["shape"],
+             wrapper_ms=dyn["sym_eig"]["wrapper_ms"], device_ms=dyn["sym_eig"]["device_ms"],
+             host_prepare_ms=dyn["sym_eig"]["host_prepare_ms"],
+             host_launch_ms=dyn["sym_eig"]["host_launch_ms"], launch_floor_ms=floor_ms,
+             refit=dyn["sym_eig"]["refit"],
+             launches_captured_flow_graph=dyn["masks"]["graphs"]["flow"]["captured"]["sym_eig"],
+             launches_wrapper_calls=dyn["launches_wrapper_calls"]["sym_eig"],
+             launches_replayed=dyn["launches_replayed"]["sym_eig"],
+             launches_traced_masked_segment=dyn["trace"]["traced"]["sym_eig"],
+             launches_main_path=main_res["launches"]["sym_eig"],
+             path="the flow mask's graph in Tracker.process (9c) and the scan (9d, 9e)"),
     ]
     _log(f"summary: build {build_s:.2f} s, main path median {main_res['median_frame_ms']:.2f} "
          f"ms/frame over {main_res['timed_frames']} frames; relocalization stage median "
@@ -5392,7 +5791,11 @@ def main() -> int:
          f"{seg['runs']['plain']['fps_wall']:.2f} frames/s; device render "
          f"{dyn['render']['ms_per_frame']:.2f} ms/frame; mask.flow "
          f"{dyn['tracking']['runs']['flow']['mask.flow_mean_ms']:.2f} ms, mask.geometry "
-         f"{dyn['tracking']['runs']['geom']['mask.geometry_mean_ms']:.2f} ms; 9d resolved ATE "
+         f"{dyn['tracking']['runs']['geom']['mask.geometry_mean_ms']:.2f} ms; sym_eig "
+         f"{dyn['sym_eig']['ms']:.4f} ms at (128, 9, 9) (torch.linalg.eigh "
+         f"{dyn['sym_eig']['library_ms']:.4f} ms); 9e a masked segment "
+         f"{dyn['trace']['wall_ms_per_frame']:.2f} ms a frame, waits "
+         f"{json.dumps(dyn['trace']['waits'])}; 9d resolved ATE "
          f"{dyn['segmented']['unmasked']['ate_resolved_m']:.4f} / "
          f"{dyn['segmented']['flow']['ate_resolved_m']:.4f} / "
          f"{dyn['segmented']['geom']['ate_resolved_m']:.4f} m; SSDLite f32 "

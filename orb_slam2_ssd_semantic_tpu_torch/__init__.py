@@ -4,7 +4,9 @@ Mirrors the layout of the JAX package `orb_slam2_ssd_semantic_tpu`
 (which stays the reference): each module here has its counterpart at the
 same path there. Plain tensor code is PyTorch; the JAX package's Pallas
 kernels are hand-written CUDA C++ for Hopper (`csrc/`, built with nvcc
-on first use, see `ops/cuda_match.py` and `ops/cuda_solve.py`).
+on first use, see `ops/cuda_match.py` and `ops/cuda_solve.py`), and so
+is the port's own batched eigensolver (`ops/cuda_eigh.py`), which keeps
+the flow mask's homography off the host.
 
 Importing this package loads neither JAX, Triton nor matplotlib, and
 nothing of the JAX package: the host-only modules it needs (`config`,
@@ -23,7 +25,8 @@ Ported so far:
   homography (`ops/homography.py`), the flow mask (`dynamic/flowmask.py`)
   and the multi-view geometry mask (`dynamic/geommask.py`), run by the
   Tracker's `dynamic.enable_*` and by the scan's and the segmented
-  runner's `use_flow` and `use_geom`;
+  runner's `use_flow` and `use_geom`, each replayed from a CUDA graph
+  (`dynamic/graphed_masks.py`);
 - the device renderer of the synthetic scenes (`io/device_render.py`);
 - semantics: the MobileNetV2-SSDLite detector (`semantic/ssdlite.py`,
   with Flax checkpoints carried across), preprocessing, anchor decode and

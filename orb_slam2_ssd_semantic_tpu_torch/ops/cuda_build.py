@@ -38,6 +38,8 @@ SIGNATURES = {
     "window_match": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 6,
     # a, lda, b, n, x, stream
     "spd_solve": [_P, _I, _P, _I, _P, _P],
+    # a, batch, n, w, v, stream
+    "sym_eig": [_P, _I, _I, _P, _P, _P],
     # op (0 begin an if-node and its body's capture, 1 end it), stream, pred, body stream
     "graph_cond": [_I, _P, _P, _P],
 }

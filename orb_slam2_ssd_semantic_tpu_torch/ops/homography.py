@@ -9,17 +9,27 @@ matrix, the best by inlier count, then a weighted refit on its inliers.
 Sampling is split from scoring, as in `geometry/ransac3d.py`: the JAX
 version draws its sets with `jax.random.categorical` from `PRNGKey(0)`,
 uniform over the valid rows with replacement. `sample_minimal_sets`
-draws the same distribution from a CPU `torch.Generator` (seeded 0) and
-maps the uniforms to valid rows by rank on the device, so the CPU and the
-card see the same sets and nothing waits for `valid`; the tests can also
-hand JAX's own sets to `find_homography_ransac`.
+draws the same distribution from a CPU `torch.Generator` (seeded 0),
+once per (seed, sets, size, device) into a device constant, and maps the
+uniforms to valid rows by rank on the device, so the CPU and the card see
+the same sets and nothing waits for `valid`; the tests can also hand
+JAX's own sets to `find_homography_ransac`.
+
+Nothing here reads the card on the host, as under JAX's `jit`: the null
+vectors come from `ops/cuda_eigh.eigh_small` (the `sym_eig` kernel on the
+card, `torch.linalg.eigh` on the CPU), the best hypothesis's row is
+gathered on the device and the normalisation is inverted by `inv_ex`,
+whose result nobody checks, as `jnp.linalg.inv` raises on nothing. So the
+flow mask can be replayed from a CUDA graph
+(`dynamic/graphed_masks.py`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import valid_rows
+from orb_slam2_ssd_semantic_tpu_torch.ops.cuda_eigh import eigh_small
+from orb_slam2_ssd_semantic_tpu_torch.utils.tensor_ops import device_constant, row, valid_rows
 
 
 def _safe_div_h22(H: torch.Tensor) -> torch.Tensor:
@@ -31,7 +41,7 @@ def _dlt(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Weighted DLT over a batch: src, dst (..., N, 2), w (..., N) ->
     H (..., 3, 3) scaled to H[2, 2] = 1. The null vector of the weighted
     (2N, 9) system is the eigenvector of AᵀA with the least eigenvalue;
-    its sign cancels in the division."""
+    its sign cancels in the division. M is (..., 9, 9): `eigh_small`."""
     x, y = src[..., 0], src[..., 1]
     u, v = dst[..., 0], dst[..., 1]
     z = torch.zeros_like(x)
@@ -40,7 +50,7 @@ def _dlt(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     r2 = torch.stack([z, z, z, -x, -y, -o, v * x, v * y, v], dim=-1)
     A = torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)  # (..., 2N, 9)
     M = A.transpose(-1, -2) @ A
-    _, vecs = torch.linalg.eigh(M)
+    _, vecs = eigh_small(M)
     H = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))
     return _safe_div_h22(H)
 
@@ -69,14 +79,22 @@ def _normalize(pts: torch.Tensor, valid: torch.Tensor):
     return (pts - mean) * scale, T
 
 
+@device_constant
+def minimal_set_uniforms(seed: int, n_hypotheses: int, size: int) -> torch.Tensor:
+    """(S, size) float32 uniforms in [0, 1) from a CPU generator seeded
+    `seed`: the same on every call and device, so made once per device."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.rand((n_hypotheses, size), generator=gen, dtype=torch.float32)
+
+
 def sample_minimal_sets(valid: torch.Tensor, n_hypotheses: int = 128,
                         seed: int = 0, size: int = 4) -> torch.Tensor:
     """(S, size) int64 row indices, uniform over the rows where `valid` is
-    set, with replacement, from a CPU generator seeded `seed`
+    set, with replacement, from `minimal_set_uniforms`
     (`tensor_ops.valid_rows`). With no valid row every index is the last
     row."""
-    gen = torch.Generator().manual_seed(seed)
-    return valid_rows(torch.rand((n_hypotheses, size), generator=gen, dtype=torch.float32), valid)
+    u = minimal_set_uniforms(seed, n_hypotheses, size, device=valid.device)
+    return valid_rows(u, valid)
 
 
 def find_homography_ransac(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
@@ -99,10 +117,10 @@ def find_homography_ransac(src: torch.Tensor, dst: torch.Tensor, valid: torch.Te
     err = torch.linalg.norm(proj - dn[None], dim=-1)  # (S, N)
     inl = (err < threshold * Td[0, 0]) & valid[None, :]
     best = torch.argmax(inl.sum(-1))
-    best_inl = inl[best]
+    best_inl = row(inl, best)
 
     H_norm = _dlt(sn, dn, best_inl.to(torch.float32))
-    H = _safe_div_h22(torch.linalg.inv(Td) @ H_norm @ Ts)
+    H = _safe_div_h22(torch.linalg.inv_ex(Td).inverse @ H_norm @ Ts)
     err_px = torch.linalg.norm(apply_homography(H, src) - dst, dim=-1)
     inliers = (err_px < threshold) & valid
     return H, inliers, inliers.sum()

@@ -20,18 +20,20 @@ that never reads the card: each frame is two CUDA-graph replays,
   nodes on the card, whose bodies run only where the device's predicate
   holds. The frame counters (`frames_since_kf`, `ref_kf_inliers`,
   `frame_idx`) are 0-d device tensors, as in JAX's carry.
-The carries of one run share both runners (made by `init_scan`), so a
+The carries of one run share the runners (made by `init_scan`), so a
 run captures each graph once. Per-frame poses, stats and keyframe-relative
-records stay on the device until the caller fetches them: without masks
-nothing in a segment waits on the card, and the host queues frame i + 1
-while the card runs frame i.
+records stay on the device until the caller fetches them: nothing in a
+segment waits on the card, and the host queues frame i + 1 while the
+card runs frame i.
 
 With `use_flow` the flow mask runs on every frame against the frame
 before it (`prev_grays`); with `use_geom` the geometry mask runs against
 the carry's ring of keyframe views (seeded with frame 0 by `init_scan`,
-fed by every keyframe event), at the motion model's predicted pose. The
-masks run eagerly before each frame's graphs, and the flow mask's
-homography fit waits on the card.
+fed by every keyframe event), at the motion model's predicted pose. Each
+mask is replayed from its graph in the carry's `MaskRunner`
+(`dynamic/graphed_masks.py`) before the frame's tracking graph, as JAX
+runs both masks inside its scan body: a masked frame is then three or
+four graph launches, and a masked segment waits on nothing either.
 
 Nothing writes into its input: a segment run twice from one carry gives
 the same result, which the segmented runner (`tracking/segmented.py`)
@@ -47,13 +49,12 @@ import torch
 
 from orb_slam2_ssd_semantic_tpu_torch import device as device_mod
 from orb_slam2_ssd_semantic_tpu_torch.config import SlamConfig
-from orb_slam2_ssd_semantic_tpu_torch.dynamic.flowmask import flow_dynamic_mask_fitted
 from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import (
     GeomRefViews,
     empty_ref_views,
-    geometry_dynamic_mask,
     insert_ref_view,
 )
+from orb_slam2_ssd_semantic_tpu_torch.dynamic.graphed_masks import MaskRunner
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
 from orb_slam2_ssd_semantic_tpu_torch.io import vocabulary as voc
 from orb_slam2_ssd_semantic_tpu_torch.mapping import local_mapping
@@ -102,6 +103,9 @@ class ScanCarry:
     track: TrackStepRunner
     # The geometry mask's reference views (`use_geom`), else None.
     geom_db: GeomRefViews | None = None
+    # The dynamic masks' runner, made by `init_scan` (or by the first
+    # masked scan from a carry without one) and shared the same way.
+    masks: MaskRunner | None = None
 
     def replace(self, **kw) -> "ScanCarry":
         return dataclasses.replace(self, **kw)
@@ -149,7 +153,7 @@ def init_scan(state: SlamState, gray0, depth0, cfg: SlamConfig,
         ref_kf_inliers=(frame.is_stereo & frame.feats.valid).sum(),
         frame_idx=torch.ones((), dtype=torch.int64, device=dev),
         word_db=word_db, val_db=val_db, cons_count=cons, geom_db=geom_db,
-        branch=KeyframeBranchRunner(dev), track=TrackStepRunner(dev))
+        branch=KeyframeBranchRunner(dev), track=TrackStepRunner(dev), masks=MaskRunner(dev))
 
 
 def _detect_loop(state: SlamState, frame, word_db, val_db, cons, cfg: SlamConfig,
@@ -340,14 +344,16 @@ def track_sequence_scan(carry: ScanCarry, grays: torch.Tensor, depths: torch.Ten
     if use_geom and carry.geom_db is None:
         raise ValueError("use_geom needs a carry made by init_scan(..., use_geom=True)")
     c = carry
+    if (use_flow or use_geom) and c.masks is None:
+        c = c.replace(masks=MaskRunner(grays.device))
     T_out, stats_out, rel_out, uid_out = [], [], [], []
     for i in range(grays.shape[0]):
         mask = None
         if use_flow:
-            mask = flow_dynamic_mask_fitted(prev_grays[i], grays[i], cfg.dynamic)
+            mask = c.masks.flow(prev_grays[i], grays[i], cfg.dynamic)
         if use_geom:
-            gmask = geometry_dynamic_mask(c.geom_db, c.velocity @ c.last_T_cw,
-                                          tk.depth_metres(depths[i]), cfg.camera, cfg.dynamic)
+            gmask = c.masks.geometry(c.geom_db, c.velocity @ c.last_T_cw,
+                                     tk.depth_metres(depths[i]), cfg.camera, cfg.dynamic)
             mask = gmask if mask is None else mask & gmask
         state, frame, T_cw, vel, kp_point, packed = c.track.step(
             c.state, grays[i], depths[i], c.last_frame, c.last_T_cw, c.last_kp_point, c.velocity,

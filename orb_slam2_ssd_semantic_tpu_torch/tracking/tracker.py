@@ -35,9 +35,11 @@ does keyframe insertion, as JAX jits it, through the tracker's
   - a LOST frame (or WEAK, in localization-only mode): relocalization's
     candidate scores, and per candidate its RANSAC and refinement
     inlier counts.
-  - a masked frame: the flow mask about 5 (`eigh` and `inv` check their
-    results), the geometry mask 1 (`chip_smoke.py` phase 9c profiles a
-    steady masked frame).
+  - a masked frame: none more. Each mask is replayed from a CUDA graph
+    of the tracker's `MaskRunner` (`dynamic/graphed_masks.py`; stages
+    `mask.flow` and `mask.geometry`, each graph captured once in stage
+    `mask.capture`), as JAX jits each into a program of its own
+    (`chip_smoke.py` phase 9c profiles a steady masked frame).
 `chip_smoke.py` phase 4 counts the stream synchronisations of a steady
 frame (one) and of a keyframe frame on the card, and those inside the
 `local_mapping` range (none).
@@ -507,6 +509,7 @@ class Tracker:
         self._mapper = None
         self._track_runner = None
         self._insert_runner = None
+        self._mask_runner = None
 
     def _to_device(self, a) -> torch.Tensor:
         """A host image on the tracker's device. The card's copy goes from
@@ -535,18 +538,21 @@ class Tracker:
         depth = self._to_device(depth)
         static_mask = None
         if cfg.dynamic.enable_flow and self.prev_gray is not None:
-            from orb_slam2_ssd_semantic_tpu_torch.dynamic.flowmask import (
-                flow_dynamic_mask_fitted,
-            )
-
-            with self.metrics.stage("mask.flow"):
-                static_mask = flow_dynamic_mask_fitted(self.prev_gray, gray, cfg.dynamic)
+            masks = self.mask_runner()
+            if not masks.ready_flow(self.prev_gray, gray, cfg.dynamic):
+                with self.metrics.stage("mask.capture"), record_function("mask.capture"):
+                    masks.capture_flow(self.prev_gray, gray, cfg.dynamic)
+            with self.metrics.stage("mask.flow"), record_function("mask.flow"):
+                static_mask = masks.flow(self.prev_gray, gray, cfg.dynamic)
         if cfg.dynamic.enable_geometry and self.initialized:
-            from orb_slam2_ssd_semantic_tpu_torch.dynamic.geommask import geometry_dynamic_mask
-
-            with self.metrics.stage("mask.geometry"):
-                gmask = geometry_dynamic_mask(self.geom_db, self.velocity @ self.last_T_cw,
-                                              depth_metres(depth), cfg.camera, cfg.dynamic)
+            masks = self.mask_runner()
+            geom_args = (self.geom_db, self.velocity @ self.last_T_cw, depth_metres(depth),
+                         cfg.camera, cfg.dynamic)
+            if not masks.ready_geometry(*geom_args):
+                with self.metrics.stage("mask.capture"), record_function("mask.capture"):
+                    masks.capture_geometry(*geom_args)
+            with self.metrics.stage("mask.geometry"), record_function("mask.geometry"):
+                gmask = masks.geometry(*geom_args)
             static_mask = gmask if static_mask is None else (static_mask & gmask)
         self.prev_gray = gray
         if not self.initialized:
@@ -686,6 +692,15 @@ class Tracker:
 
             self._insert_runner = InsertKeyframeRunner(self.device)
         return self._insert_runner
+
+    def mask_runner(self):
+        """The tracker's runner of the dynamic masks (one CUDA graph per
+        mask and configuration on the card), made at the first call."""
+        if self._mask_runner is None:
+            from orb_slam2_ssd_semantic_tpu_torch.dynamic.graphed_masks import MaskRunner
+
+            self._mask_runner = MaskRunner(self.device)
+        return self._mask_runner
 
     def local_mapper(self):
         """The tracker's local-mapping runner (one CUDA graph of the step

@@ -135,11 +135,12 @@ def f32_reciprocal(v: float) -> float:
 
 def valid_rows(u: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """int64 indices (u's shape) of rows where `valid` is set: uniforms
-    `u` in [0, 1) from a CPU generator (the same draws on every device)
+    `u` in [0, 1) from a CPU generator (the same draws on every device;
+    on the host they are uploaded first, on the device taken as they are)
     pick the r-th valid row, r = floor(u * n_valid), found on the device
     from the running count, so `valid` is never fetched. With no valid
     row every index is the last row."""
-    if valid.is_cuda:
+    if valid.is_cuda and not u.is_cuda:
         u = u.pin_memory().to(valid.device, non_blocking=True)
     cnt = torch.cumsum(valid.to(torch.int64), dim=0)
     n = cnt[-1]

@@ -31,7 +31,8 @@ Gates, and why:
 - the scan with `use_flow`, and with `use_geom`, on 7 frames of the
   dynamic scene (two moving boxes) against `Tracker.process` with the
   same mask: the same masks feed the same `fused_track_step`, so poses,
-  statuses and keyframes are equal bit for bit. The scan's view ring
+  statuses and keyframes are equal bit for bit; the scan, masks included,
+  reads nothing on the host but the predicates. The scan's view ring
   starts with frame 0 (`init_scan`, as in JAX) and the Tracker's with
   its first keyframe after frame 0 (as in JAX), so the test hands the
   Tracker frame 0's view before frame 1.
@@ -370,7 +371,9 @@ def dynamic_frames():
 ])
 def test_scan_with_mask_equals_tracker_process(dynamic_frames, mask, depth_unit):
     """The scan with a mask against `Tracker.process`, bit for bit; with
-    uint16 mm depths both hand the geometry mask metres."""
+    uint16 mm depths both hand the geometry mask metres. The scan runs
+    with every host read trapped but `device_cond`'s predicate: the masks'
+    graphs read nothing either."""
     g, d = dynamic_frames
     if depth_unit == "mm":
         d = np.round(d * 1000).astype(np.uint16)
@@ -390,7 +393,8 @@ def test_scan_with_mask_equals_tracker_process(dynamic_frames, mask, depth_unit)
     kw = {mask: True}
     if mask == "use_flow":
         kw["prev_grays"] = gt_[:-1]
-    c, T, stats = tst.track_sequence_scan(c0, gt_[1:], dt_[1:], cfg, **kw)
+    with host_reads_trapped(allowed=[(graph_cond, "predicate_on_host")]):
+        c, T, stats = tst.track_sequence_scan(c0, gt_[1:], dt_[1:], cfg, **kw)
     stage = "mask.flow" if mask == "use_flow" else "mask.geometry"
     assert tracker.metrics.stages[stage].count == N_DYN - 1
     assert [("OK", "WEAK", "LOST")[s] for s in stats[:, 0]] == [s["status"]
