@@ -43,16 +43,25 @@ phase 14 phase 10's views and phase 7's map.
      one `cudaGraphLaunch` and one stream sync, the stats fetch; inside
      the `local_mapping` range: a `cudaGraphLaunch` and no sync); in both
      traces B1's two kernels and B2's ran on the card as many times as
-     the window's own wrapper calls and its replays' captured launches
-     (see "Launches" below) add up to; 4b: the tracking
-     graph (a runner of its own) against the eager `fused_track_step` on
+     the window's own wrapper calls, its replays' captured launches and
+     its conditional bodies' runs (see "Launches" below) add up to; the
+     tracking step's retry and fallback are conditional bodies of its
+     graph: a steady replay runs B1 twice, and once more where the retry
+     body ran, and no fallback body (their counters on the card); the
+     steady window's kernels and card-busy ms a replay are logged beside
+     the parent tree's, which computed both branches; 4b, in a process
+     of its own (a trace in the script's process, after its earlier
+     profiler sessions, lost kernels of a conditional body's replay): the
+     tracking graph (a runner of its own) against the eager
+     `fused_track_step` on
      the arguments phase 4 gave frame 50 and frame 94 (after the
      local-mapping replay) and on frame 50's with the velocity pushed
      0.6 m (the reference-keyframe fallback decides): every output tensor
      equal bit for bit, each replay one `cudaGraphLaunch`, no wait and no
-     wrapper call, B1 in its trace as captured, the first replay's
-     outputs unchanged by later ones; the graph's dispatch, the replay
-     and the eager step timed;
+     wrapper call, B1 in its trace twice and once more where the retry
+     body ran, the fallback body run where the motion model failed (the
+     pushed frame alone), the first replay's outputs unchanged by later
+     ones; the graph's dispatch, the replay and the eager step timed;
   5. local mapping at a 12 + 8 keyframe window (6 * 20 = 120 unknowns, the
      size at which local BA routes its reduced camera system to B2) on the
      phase-4 map; checks that B2 launched and that the refined poses agree
@@ -90,7 +99,8 @@ phase 14 phase 10's views and phase 7's map.
      relocalization is tried, and with the points back it is OK; a
      kidnapped camera (the first poses rolled by 180 degrees) goes LOST,
      relocalizes within 5 cm of ground truth and tracks OK on, with B1
-     launched over those frames. Logs the median host time of a
+     launched over those frames and the tracking graph's fallback body
+     run on every frame tracked LOST. Logs the median host time of a
      relocalization stage call and of a direct `relocalize` call, and the
      launches and syncs of one call by profiler range;
   7. loop closing, on the same named vocabulary:
@@ -129,7 +139,8 @@ phase 14 phase 10's views and phase 7's map.
         the first frames one at a time through `init_scan` and
         `track_sequence_scan` for the per-frame time and a profiled
         window of steady frames, whose trace holds B1's and B2's kernels
-        as often as the window's launches count them;
+        as often as the window's launches count them (twice a replay and
+        once a retry body run, no fallback body run);
      b. `track_sequence_segmented` on `tests/test_segmented.py`'s circuit
         at 640x480 (145 frames, 2.35 laps, 1% depth noise, segments of
         36), all four segments (145 frames), at `bench.py`'s
@@ -151,8 +162,10 @@ phase 14 phase 10's views and phase 7's map.
         wait (the fetch) in the trace; each frame two graph launches (the
         tracking step, the keyframe branch under conditional nodes); per
         frame the branch's kernels, and B1's runs traced in each launch:
-        3 in every tracking replay, 20 in the branch only where local
-        mapping ran (a keyframe that made 3 or more); graph launches,
+        2 in every tracking replay and 1 more in each, by the retry body's
+        counter, that ran the retry; no fallback body run; 20 in the
+        branch only where local mapping ran (a keyframe that made 3 or
+        more); graph launches,
         copies, kernels, device busy ms and host dispatch ms a frame; the
         branch graph's capture ms, pools (their segments) and first-replay
         upload; the bodies' counters on the card equal to the keyframes
@@ -164,7 +177,8 @@ phase 14 phase 10's views and phase 7's map.
         process of its own (held). 8a and 8b also hold the bodies'
         counters: to the scan's insertions and local mappings, and in
         each segmented run to the frames dispatched and the insertions
-        the final map counts;
+        the final map counts; the tracking graph's retry cond once a
+        tracked frame in each;
   9. the dynamic masks and the device renderer (counters zeroed before,
      read after; B1's launches here are `launches_dynamic`):
      a. `io/device_render.render_frames` on the card: `bench.py`'s walker
@@ -362,12 +376,17 @@ runs its capture's launches without calling a wrapper. A phase's
 capture plus each replay's captured launches (`_kernel_runs`), with
 `launches_wrapper_calls`, `launches_replayed` and `launches_in_bodies`
 beside them. Launches captured inside a conditional body (the scan's
-keyframe branch, `mapping/graph_cond.py`) run only where the body's
+keyframe branch and the tracking step's retry and fallback,
+`mapping/graph_cond.py`) run only where the body's
 predicate holds on the card: each body bumps a counter on the card
 (`GraphedStep.body_runs`), and its launches count once a run
-(`launches_in_bodies`). Phases 4, 4b, 8a and 8c hold these counts to the
-card's trace, 8a-8c the bodies' runs to the frames that took them, and
-every phase that tracks frames requires B1 in a replay.
+(`launches_in_bodies`). The tracking graph holds four bodies (the
+doubled-window retry, the reference-keyframe fallback and the
+pass-through of each; `track_branches` counts the retries and fallbacks
+run), the scan's keyframe branch four more. Phases 4, 4b, 8a and 8c hold
+these counts to the card's trace, 8a-8c the bodies' runs to the frames
+that took them, and every phase that tracks frames requires B1 in a
+replay.
 
 Without a CUDA card it exits non-zero and prints no result.
 
@@ -558,6 +577,11 @@ PROFILE_KEYFRAME = 93
 TRACK_OK_FRAME = 50
 TRACK_PUSH_M = 0.6
 TRACK_REPEATS = 5
+# A steady replay of the tracking graph in the parent tree, which computed
+# both branches of the step's two conds every frame: kernels and card-busy
+# ms (PERF.md section 5: H100 80GB HBM3, 700.00 W). Logged beside this
+# run's; not part of the `kernels` line.
+PARENT_STEADY_KERNELS, PARENT_STEADY_BUSY_MS = 17600, 25.18
 # B1: the main path's three shapes first; then a T of six splits (384), Q and
 # T that fill no tile (300, 200: a last split of 8 targets), a T under one
 # split (40), a T whose splits are two staged chunks long (4096), a wide one.
@@ -696,6 +720,11 @@ WALK_ATE_GATE = 0.15
 # is so separated, `_dlt`'s homography within SYM_EIG_H_TOL of the plain
 # version's, relative to its largest entry.
 SYM_EIG_TOL, SYM_EIG_GAP, SYM_EIG_VEC_TOL, SYM_EIG_H_TOL = 1e-5, 1e-3, 1e-4, 1e-4
+# The first design's launch-to-end ms (a warp a matrix in shared memory,
+# four passes a round), read by this script on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md section 6). Logged beside this run's; not part of the
+# `kernels` line.
+SYM_EIG_PREV_MS = {"minimal_sets": 0.1169, "refit": 0.0976}
 # 9e: one segment of SEG_LEN frames of 9a's walker scene with both masks,
 # after frames 1-12 from `init_scan` (every graph captured there).
 MASK_TRACE_FRAMES = range(13, 13 + SEG_LEN)
@@ -902,7 +931,7 @@ def _reset_counts() -> None:
     _REPLAYED.update(dict.fromkeys(_REPLAYED, 0))
     # A dead graph runs no body again; a live one counts from 0.
     _BODIES[:] = [b for b in _BODIES if b[0]() is not None]
-    for _, _, runs in _BODIES:
+    for *_, runs in _BODIES:
         runs.zero_()
 
 
@@ -978,7 +1007,7 @@ def _count_replays() -> None:
         def make(self, *args, **kwargs):
             init(self, *args, **kwargs)
             if self.bodies:
-                _BODIES.append((weakref.ref(self), self.bodies, self.body_runs))
+                _BODIES.append((weakref.ref(self), self.name, self.bodies, self.body_runs))
         return make
 
     GraphedStep.__init__ = registered(tallied(GraphedStep.__init__))
@@ -986,47 +1015,66 @@ def _count_replays() -> None:
 
 
 # The conditional bodies of the graphs captured since `_count_replays`:
-# (the graph, weakly; its bodies' records; their run counter on the card,
-# which outlives the graph until the next `_reset_counts`).
+# (the graph, weakly; its name; its bodies' records; their run counter on
+# the card, which outlives the graph until the next `_reset_counts`).
 _BODIES: list = []
 
 
 def _body_runs() -> list:
-    """[(body record, runs since the last `_reset_counts`)] of every
-    registered graph's conditional bodies: a read of the card's counters
-    (call it outside a profiled window)."""
+    """[(graph name, body record, runs since the last `_reset_counts`)] of
+    every registered graph's conditional bodies: a read of the card's
+    counters (call it outside a profiled window)."""
     if not _BODIES:
         return []
-    runs = torch.cat([r for _, _, r in _BODIES]).tolist()
+    runs = torch.cat([r for *_, r in _BODIES]).tolist()
     out, i = [], 0
-    for _, bodies, r in _BODIES:
-        out += list(zip(bodies, runs[i:i + len(bodies)]))
+    for _, name, bodies, r in _BODIES:
+        out += [(name, body, n) for body, n in zip(bodies, runs[i:i + len(bodies)])]
         i += r.numel()
     return out
 
 
-def _body_totals() -> dict:
-    """Runs of the registered bodies since the last `_reset_counts`, summed
-    by kind: "d<depth>_<taken on>" ("d0_True": the outer branch taken,
-    "d1_True": the nested one)."""
+def _body_kind(body: dict) -> str:
+    """"<cond's name>_<taken on>" for a body of a named `device_cond` (the
+    tracking step's "retry_True": the doubled window matched;
+    "fallback_False": the reference-keyframe fallback ran), else
+    "d<depth>_<taken on>" (the keyframe branch's "d0_True": the outer
+    branch taken, "d1_True": the nested one)."""
+    return f"{body['name'] or 'd' + str(body['depth'])}_{body['taken_on']}"
+
+
+def _body_totals(graph: str = "KeyframeBranchRunner") -> dict:
+    """Runs of the bodies of the registered graphs named `graph` since the
+    last `_reset_counts`, summed by `_body_kind`."""
     out = {}
-    for body, n in _body_runs():
-        key = f"d{body['depth']}_{body['taken_on']}"
-        out[key] = out.get(key, 0) + n
+    for name, body, n in _body_runs():
+        if name == graph:
+            key = _body_kind(body)
+            out[key] = out.get(key, 0) + n
     return out
+
+
+def _track_branches(kinds: dict) -> dict:
+    """The tracking step's bodies from their runs by `_body_kind`: the
+    replays that reached its conds (each runs one of the retry's two
+    bodies), the doubled-window retries and the reference-keyframe
+    fallbacks."""
+    return dict(replays=kinds.get("retry_True", 0) + kinds.get("retry_False", 0),
+                retry=kinds.get("retry_True", 0), fallback=kinds.get("fallback_False", 0))
 
 
 def _tally() -> dict:
     """B1's and B2's counts since the last `_reset_counts`: the wrappers'
     calls, the launches those calls made into graphs being captured, the
     launches that graph replays ran outside conditional bodies, and those
-    that the bodies' runs ran."""
+    that the bodies' runs ran; and the tracking graphs' branch runs
+    (`_track_branches`)."""
     bodies = dict.fromkeys(_REPLAYED, 0)
-    for body, n in _body_runs():
+    for _, body, n in _body_runs():
         for k, c in body["kernels"].items():
             bodies[k] += c * n
     return dict(wrapper=_counts(), captured=_captured_counts(), replayed=dict(_REPLAYED),
-                bodies=bodies)
+                bodies=bodies, track=_track_branches(_body_totals("TrackStepRunner")))
 
 
 def _since(before: dict) -> dict:
@@ -1048,13 +1096,15 @@ def _kernel_runs(tally: dict | None = None) -> dict:
 def _path_launches(label: str, dev) -> dict:
     """A phase's launches since the last `_reset_counts`: B1's and B2's
     runs on the card (`launches`), the wrappers' calls and the replays'
-    runs; on the card, raises unless B1 ran in a graph's replay (every
-    tracked frame replays the tracking step's graph)."""
+    runs, and the tracking graphs' branch runs; on the card, raises unless
+    B1 ran in a graph's replay (every tracked frame replays the tracking
+    step's graph)."""
     t = _tally()
     if dev.type == "cuda" and t["replayed"]["window_match"] == 0:
         raise AssertionError(f"{label} never ran the window matcher in a graph's replay: {t}")
     return dict(launches=_kernel_runs(t), launches_wrapper_calls=t["wrapper"],
-                launches_replayed=t["replayed"], launches_in_bodies=t["bodies"])
+                launches_replayed=t["replayed"], launches_in_bodies=t["bodies"],
+                track_branches=t["track"])
 
 
 # ---- phase 1 ---------------------------------------------------------------
@@ -1581,16 +1631,19 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
                 prof.stop()
                 window_since = _since(window_before)
                 window_python, window_graphs = window_since["wrapper"], window_since["replayed"]
+                window_bodies, window_branches = window_since["bodies"], window_since["track"]
             if card and i == PROFILE_KEYFRAME:
                 prof_kf.stop()
                 kf_since = _since(kf_before)
                 kf_python, kf_graphs = kf_since["wrapper"], kf_since["replayed"]
+                kf_bodies = kf_since["bodies"]
     finally:
         LocalMappingRunner.step, TrackStepRunner.step = replay, track_step
     counts = _counts()
     captured = _captured_counts()
     graph_runs = dict(_REPLAYED)
-    runs = _kernel_runs()
+    whole = _tally()
+    runs = _kernel_runs(whole)
     ate = evaluate_ate_xyz(tracker.camera_positions(), seq.gt_positions()).rmse
     statuses = [s["status"] for s in tracker.stats[1:]]
     ok_frac = statuses.count("OK") / len(statuses)
@@ -1607,7 +1660,8 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
                local_mapping_steps=n_lm, local_mapping_captures=n_capture,
                track_captures=n_track_capture, tracked_frames=n_tracked, launches=runs,
                launches_wrapper_calls=counts, launches_captured=captured,
-               launches_replayed=graph_runs,
+               launches_replayed=graph_runs, launches_in_bodies=whole["bodies"],
+               track_branches=whole["track"],
                median_frame_ms=statistics.median(frame_ms[1:]),
                mean_frame_ms=statistics.mean(frame_ms[1:]), timed_frames=len(frame_ms) - 1,
                b1_launches_per_frame=runs["window_match"] / (n_frames - 1))
@@ -1623,16 +1677,27 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
         res["track_capture"] = dict(capture_ms=track_graph["capture_ms"],
                                     pool_mib=track_graph["pool_bytes"] / 2**20,
                                     replays=track_graph["replays"],
-                                    captured=track_graph["captured"])
+                                    captured=track_graph["captured"],
+                                    conditional=track_graph["conditional"],
+                                    bodies=track_graph["bodies"])
         _log("main path local-mapping graph: " + json.dumps(res["capture"])
              + "; tracking graph: " + json.dumps(res["track_capture"])
              + "; insertion graphs (pool_bytes in MiB): " + json.dumps(res["insert_capture"]))
     if len(profiled):
         breakdown = _device_breakdown(prof, len(profiled), res["median_frame_ms"])
         breakdown.update(launches_python=window_python, launches_replayed=window_graphs,
+                         launches_in_bodies=window_bodies, track_branches=window_branches,
+                         b1_per_replay=(window_graphs["window_match"]
+                                        + window_bodies["window_match"]) / len(profiled),
                          traced=_traced_launches(prof))
         res["profile"] = breakdown
         _log(f"profiled frames {profiled.start}-{profiled[-1]}: " + json.dumps(breakdown))
+        _log(f"a steady replay: {breakdown['kernels_per_frame']:.1f} kernels, the card busy "
+             f"{breakdown['device_busy_ms_per_frame']:.2f} ms (the parent tree, both branches of "
+             f"each cond computed: ~{PARENT_STEADY_KERNELS} and {PARENT_STEADY_BUSY_MS} ms, "
+             f"PERF.md section 5); retry and fallback bodies run in the window: "
+             f"{window_branches['retry']} and {window_branches['fallback']} of "
+             f"{window_branches['replays']} replays; B1 {breakdown['b1_per_replay']} a replay")
         _log(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=12,
                                        max_name_column_width=50))
     if card:
@@ -1662,7 +1727,7 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
             raise AssertionError(f"frame {PROFILE_KEYFRAME} inserted its keyframe with {ins}, not "
                                  "one graph launch and no wait")
         _check_traced(f"frame {PROFILE_KEYFRAME}", kf["traced"],
-                      {k: kf_python[k] + kf_graphs[k] for k in kf_python})
+                      {k: kf_python[k] + kf_graphs[k] + kf_bodies[k] for k in kf_python})
         if captured["window_match"] == 0:
             raise AssertionError(f"the main path's graphs hold no B1 launch: {captured}")
         # A steady frame: one replay of the tracking graph and one wait, the
@@ -1674,8 +1739,18 @@ def run_main_path(dev, n_frames: int = N_FRAMES, n_loop: int = LOOP_SEQ_FRAMES,
         if any(window_python.values()) or not window_graphs["window_match"]:
             raise AssertionError(f"steady frames called the wrappers {window_python} and "
                                  f"replayed {window_graphs}")
+        # B1 twice a steady replay (the motion model's first window, local-map
+        # tracking), once more in each retry body run; no fallback there.
+        n_window = len(profiled)
+        if (window_branches["replays"] != n_window or window_branches["fallback"]
+                or window_graphs["window_match"] != 2 * n_window
+                or window_bodies["window_match"] != window_branches["retry"]):
+            raise AssertionError(f"the steady window's {n_window} replays ran B1 "
+                                 f"{window_graphs['window_match']} times outside bodies and "
+                                 f"{window_bodies['window_match']} inside, the branches "
+                                 f"{window_branches}")
         _check_traced(f"frames {profiled.start}-{profiled[-1]}", breakdown["traced"],
-                      window_graphs)
+                      {k: window_graphs[k] + window_bodies[k] for k in window_graphs})
     if not ate < 0.01:
         raise AssertionError(f"main path ATE {ate:.5f} m >= 0.01 m")
     if not ok_frac >= 0.9:
@@ -1713,9 +1788,11 @@ def check_track_graph(dev, track_args: dict, cfg: SlamConfig, card: str) -> dict
     steady frame with its velocity pushed TRACK_PUSH_M (the reference-
     keyframe fallback decides: the motion model keeps under
     `min_inliers_track` inliers). Each replay under sync debug mode
-    "error", profiled: one `cudaGraphLaunch`, no wait, no wrapper call, and
-    B1's two kernels in the trace as often as the graph captured them; the
-    first case's outputs unchanged by the later replays. Times the
+    "error", profiled: one `cudaGraphLaunch`, no wait, no wrapper call, B1
+    twice outside the conditional bodies and once in each run of the retry
+    body (its counter on the card), its two kernels in the trace as often,
+    the fallback body run on the pushed frame alone; the first case's
+    outputs unchanged by the later replays. Times the
     graph's dispatch, the graph and the eager step synchronized (host
     clock), and logs the capture's host ms and pool."""
     on_card = dev.type == "cuda"
@@ -1731,9 +1808,16 @@ def check_track_graph(dev, track_args: dict, cfg: SlamConfig, card: str) -> dict
     sync()
     _reset_counts()
     cap_args, cap_kw = cases["after_local_mapping"]
-    runner.capture(*cap_args, **cap_kw)
+    graph, _ = runner.capture(*cap_args, **cap_kw)
     captured = _captured_counts()
     sync()
+    retry_b1 = [b["kernels"].get("window_match", 0) for b in graph.bodies
+                if _body_kind(b) == "retry_True"]
+    if on_card and (graph.captured.get("window_match") != 2 or retry_b1 != [1]
+                    or len(graph.bodies) != 4):
+        raise AssertionError(f"4b: the tracking graph recorded B1 {graph.captured} outside its "
+                             f"bodies and {graph.conditional} inside, bodies {graph.bodies}: "
+                             "2 outside, 1 in the retry body of 4 expected")
 
     def call(args, kwargs):
         if on_card:
@@ -1756,11 +1840,12 @@ def check_track_graph(dev, track_args: dict, cfg: SlamConfig, card: str) -> dict
             out = call(args, kwargs)
             sync()
         since = _since(before)
-        wrapper, replayed = since["wrapper"], since["replayed"]
+        wrapper, replayed, bodies = since["wrapper"], since["replayed"], since["bodies"]
         stats = eager[-1].cpu().numpy()
         r = dict(status=int(stats[16]), need_kf=bool(stats[17] > 0.5), n_inliers=int(stats[18]),
                  n_inliers_motion_model=int(stats[20]), launches_python=wrapper,
-                 launches_replayed=replayed,
+                 launches_replayed=replayed, launches_in_bodies=bodies,
+                 track_branches=since["track"],
                  traced=_traced_launches(prof) if on_card else None,
                  runtime_calls=_runtime_in(prof, "track"),
                  replay_kernels=_device_kernels(prof, ("track",)) if on_card else None,
@@ -1780,10 +1865,20 @@ def check_track_graph(dev, track_args: dict, cfg: SlamConfig, card: str) -> dict
         waits = {k: v for k, v in r["runtime_calls"].items() if k in _SYNC_CALLS}
         if waits or r["runtime_calls"].get("cudaGraphLaunch") != 1:
             raise AssertionError(f"4b: the {label} frame's replay made {r['runtime_calls']}")
-        if any(wrapper.values()) or replayed["window_match"] != captured["window_match"]:
-            raise AssertionError(f"4b: the {label} frame's replay called the wrappers {wrapper} "
-                                 f"and replayed {replayed}, the capture recorded {captured}")
-        _check_traced(f"4b: the {label} frame's replay", r["traced"], replayed)
+        # The fallback body runs where the motion model failed, here where it
+        # kept too few inliers (its other failure, a jump over 0.5 m, does
+        # not happen on these frames).
+        branches = since["track"]
+        want_fallback = int(r["n_inliers_motion_model"] < cfg.tracking.min_inliers_track)
+        if (any(wrapper.values()) or replayed["window_match"] != 2
+                or bodies["window_match"] != branches["retry"] or branches["replays"] != 1
+                or branches["fallback"] != want_fallback):
+            raise AssertionError(f"4b: the {label} frame's replay called the wrappers {wrapper}, "
+                                 f"replayed {replayed} outside bodies and {bodies} inside, ran "
+                                 f"the branches {branches}: B1 2 + retries, the fallback "
+                                 f"{want_fallback} expected")
+        _check_traced(f"4b: the {label} frame's replay", r["traced"],
+                      {k: replayed[k] + bodies[k] for k in replayed})
     res["changed_by_later_replays"] = [
         path for (path, t), k in zip(state_leaves(first, "out"), kept, strict=True)
         if not torch.equal(t, k)]
@@ -1795,28 +1890,67 @@ def check_track_graph(dev, track_args: dict, cfg: SlamConfig, card: str) -> dict
     if res["changed_by_later_replays"]:
         raise AssertionError(f"4b: the outputs of the first replay changed with later ones in "
                              f"{res['changed_by_later_replays']}")
-    dispatch, synced, eager_ms = [], [], []
-    for i in range(TRACK_REPEATS):
-        args, kwargs = cases["ok" if i % 2 else "fallback"]
-        sync()
-        t = time.perf_counter()
-        call(args, kwargs)
-        dispatch.append((time.perf_counter() - t) * 1e3)
-        sync()
-        synced.append((time.perf_counter() - t) * 1e3)
-        t = time.perf_counter()
-        with highest_precision():
-            tracker_mod.fused_track_step(*args, **kwargs)
-        sync()
-        eager_ms.append((time.perf_counter() - t) * 1e3)
-    res.update(dispatch_ms=statistics.median(dispatch), synced_ms=statistics.median(synced),
-               eager_ms=statistics.median(eager_ms), launches_captured=captured,
+    # Timed apart: a steady frame, which skips both branches, and the pushed
+    # one, which runs the fallback body.
+    times = {}
+    for label in ("ok", "fallback"):
+        args, kwargs = cases[label]
+        dispatch, synced, eager_ms = [], [], []
+        for _ in range(TRACK_REPEATS):
+            sync()
+            t = time.perf_counter()
+            call(args, kwargs)
+            dispatch.append((time.perf_counter() - t) * 1e3)
+            sync()
+            synced.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            with highest_precision():
+                tracker_mod.fused_track_step(*args, **kwargs)
+            sync()
+            eager_ms.append((time.perf_counter() - t) * 1e3)
+        times[label] = dict(dispatch_ms=statistics.median(dispatch),
+                            synced_ms=statistics.median(synced),
+                            eager_ms=statistics.median(eager_ms))
+    res.update(**times["ok"], fallback_frame=times["fallback"], launches_captured=captured,
                capture=(_capture_stats(runner, cfg) | {"replays": runner.stats(cfg)["replays"]}
                         if on_card else None),
                phase_s=time.perf_counter() - t0)
     _log("4b the tracking step's graph against the eager step: " + json.dumps(res)
          + f"; card: {card}")
     return res
+
+
+def _moved(tree, dev):
+    """The tracking step's arguments (tensors in dataclasses and tuples,
+    ints, a `SlamConfig`, None) with every tensor on `dev`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, SlamConfig) or tree is None or isinstance(tree, (int, float)):
+        return tree
+    if isinstance(tree, tuple):
+        return tuple(_moved(x, dev) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _moved(x, dev) for k, x in tree.items()}
+    return dataclasses.replace(tree, **{f.name: _moved(getattr(tree, f.name), dev)
+                                        for f in dataclasses.fields(tree)})
+
+
+def _track_graph_child(track_args: dict, cfg: SlamConfig, card: str) -> dict:
+    _count_replays()
+    dev = torch.device("cuda")
+    return check_track_graph(dev, _moved(track_args, dev), cfg, card)
+
+
+def run_track_graph_check(track_args: dict, cfg: SlamConfig, card: str) -> dict:
+    """4b in a process of its own, on CPU copies of phase 4's arguments:
+    after the script's earlier profiler sessions, a trace in the script's
+    process lost one of B1's kernels from a replay that ran the fallback
+    body, though the replay's outputs equaled the eager step's (so B1
+    ran), as 8c's traces there tied body kernels to the wrong launches; a
+    fresh process traces cleanly."""
+    cpu = _moved(track_args, torch.device("cpu"))
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_track_graph_child, (cpu, cfg, card))
 
 
 # ---- phase 5: B2 through local BA ----------------------------------------------
@@ -2324,8 +2458,8 @@ def run_reloc_path(dev, rendered, card: str) -> dict:
             raise AssertionError(f"mbVO fallback: statuses {mbvo}, {n_attempts} relocalization "
                                  "attempts (wanted never LOST, at least one attempt, OK last)")
 
-        # The kidnap: B1's launches are counted over these frames alone
-        # (the tracking graph's replays run them).
+        # The kidnap: B1's launches and the tracking graph's branch bodies are
+        # counted over these frames alone (the graph's replays run them).
         last = n_track + 2 * MBVO_FRAMES - 1
         lost_before = tracker.metrics.counters.get("lost", 0)
         _reset_counts()
@@ -2349,6 +2483,12 @@ def run_reloc_path(dev, rendered, card: str) -> dict:
     _log("phase 6 stages (Tracker.metrics, host clock):\n" + tracker.metrics.report())
     if kid[0]["lost"] < 1:
         raise AssertionError(f"the kidnap gave no LOST frame: {kid}")
+    # A frame tracked LOST had its motion model fail, so it ran the
+    # tracking graph's fallback body.
+    fallbacks = res["kidnap"]["track_branches"]["fallback"]
+    if dev.type == "cuda" and fallbacks < kid[-1]["lost"]:
+        raise AssertionError(f"the kidnap's {kid[-1]['lost']} LOST frames ran the fallback body "
+                             f"{fallbacks} times")
     if not all(k["status"] == "OK" and k["pose_err_m"] < RELOC_POSE_TOL for k in kid):
         raise AssertionError(f"no recovery from the kidnap within {RELOC_POSE_TOL} m: {kid}")
     return res
@@ -2711,6 +2851,7 @@ def run_scan_path(dev, main_res: dict, card: str) -> dict:
     wall_s = time.perf_counter() - t
     counts = _path_launches("8a: the scan", dev)
     body_runs = _body_totals()
+    branches = counts["track_branches"]
     runs = counts["launches"]
     status_scan = [("OK", "WEAK", "LOST")[int(c)] for c in stats[:, 0]]
     status_proc = [st["status"] for st in tracker.stats[1:]]
@@ -2759,7 +2900,8 @@ def run_scan_path(dev, main_res: dict, card: str) -> dict:
             dispatch_ms.append((t_dispatch - t) * 1e3)
         if len(profiled) and i == profiled[-1]:
             prof.stop()
-            window_runs = _kernel_runs(_since(window_before))
+            window_since = _since(window_before)
+            window_runs, window_branches = _kernel_runs(window_since), window_since["track"]
     proc_ms = main_res["frame_ms"][1:n_replay - len(profiled)]
     res = dict(frames=n, wall_s=wall_s, mean_frame_ms=wall_s * 1e3 / (n - 1),
                process_mean_frame_ms=main_res["mean_frame_ms"],
@@ -2777,7 +2919,8 @@ def run_scan_path(dev, main_res: dict, card: str) -> dict:
                b1_launches_per_frame=runs["window_match"] / (n - 1))
     if len(profiled):
         res["profile"] = _device_breakdown(prof, len(profiled), res["replay_median_frame_ms"])
-        res["profile"].update(launches=window_runs, traced=_traced_launches(prof))
+        res["profile"].update(launches=window_runs, track_branches=window_branches,
+                              traced=_traced_launches(prof))
         res["process_profile"] = main_res.get("profile")
     _log("8a scan vs Tracker.process: " + json.dumps(res) + f"; card: {card}")
     if status_scan != status_proc:
@@ -2795,7 +2938,15 @@ def run_scan_path(dev, main_res: dict, card: str) -> dict:
         raise AssertionError(f"8a: scan ATE {ate:.5f} m >= 0.01 m")
     if dev.type == "cuda":
         _check_bodies("8a", body_runs, n - 1, res["inserted"], len(lm_scan))
+        if branches["replays"] != n - 1:
+            raise AssertionError(f"8a: the tracking graph's bodies ran {branches} in {n - 1} "
+                                 "frames: one of the retry's two a frame expected")
     if len(profiled):
+        # The steady window: B1 twice a replay and once a retry, no fallback.
+        want = 2 * len(profiled) + window_branches["retry"]
+        if window_branches["fallback"] or window_runs["window_match"] != want:
+            raise AssertionError(f"8a: the steady window ran B1 {window_runs['window_match']} "
+                                 f"times ({want} expected) and the branches {window_branches}")
         _check_traced(f"8a: the scan's frames {profiled.start}-{profiled[-1]}",
                       res["profile"]["traced"], window_runs)
     return res
@@ -2817,11 +2968,12 @@ def _by_graph_launch(events, device: list) -> list:
                          f"({len(launches)} launches, {len(device)} device events)")
 
 
-def _bodies_by_kind(bodies: list, runs: list) -> dict:
-    """A graph's body runs summed by kind, as `_body_totals` names them."""
+def _bodies_by_kind(graph: GraphedStep) -> dict:
+    """A graph's body runs by its counter on the card, summed by
+    `_body_kind`."""
     out = {}
-    for body, n in zip(bodies, runs):
-        key = f"d{body['depth']}_{body['taken_on']}"
+    for body, n in zip(graph.bodies, graph.body_runs[:len(graph.bodies)].tolist()):
+        key = _body_kind(body)
         out[key] = out.get(key, 0) + n
     return out
 
@@ -2860,10 +3012,13 @@ def check_scan_trace(dev, rendered, card: str, fresh: bool = True) -> dict:
     them, with the same segment untraced before and after the trace, each
     runner's step call timed and each graph's `replay()` alone. Holds the trace to one
     device-to-host copy and one wait, and the branch's conditional bodies
-    by their counters to the frames that took them. In a process of its
-    own (`fresh`, `run_scan_trace`) also two graph launches a frame and
-    B1's traced runs: 3 in each tracking replay, 20 in the keyframe branch
-    exactly where local mapping ran. In the script's process, after the
+    by their counters to the frames that took them, the tracking graph's
+    to one retry body a frame and no fallback. In a process of its own
+    (`fresh`, `run_scan_trace`) also two graph launches a frame and B1's
+    traced runs: 2 in each tracking replay and 1 more where the retry body
+    ran (3 in all before the retry was a conditional body), as many as its
+    counter says, 20 in the keyframe branch exactly where local mapping
+    ran. In the script's process, after the
     profiler sessions of the phases before, the trace's B1 count and its
     ties of kernels to launches are logged, not held."""
     from orb_slam2_ssd_semantic_tpu_torch.tracking import segmented as seg_mod
@@ -2878,7 +3033,7 @@ def check_scan_trace(dev, rendered, card: str, fresh: bool = True) -> dict:
     n_kfs_before = int(carry.state.n_kfs)
     branch_graph = carry.branch.graphs()[-1]
     branch = carry.branch.stats(cfg, None, False, True)
-    n_bodies = len(branch_graph.bodies)
+    track_graph = carry.track.graphs()[-1]
     torch.cuda.synchronize()
     mem_before = torch.cuda.memory_allocated(dev)
     n = hi - lo
@@ -2926,14 +3081,15 @@ def check_scan_trace(dev, rendered, card: str, fresh: bool = True) -> dict:
     # against `untraced_after_trace`'s), so that timing is kept apart.
     untraced = timed_segment()
     branch_graph.body_runs.zero_()
+    track_graph.body_runs.zero_()
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
     prof.start()
     with torch.profiler.record_function("scan.segment"):
         packed, traced_dispatch_ms, traced_wall_ms = segment()
     prof.stop()
-    body_runs = _bodies_by_kind(branch_graph.bodies,
-                                branch_graph.body_runs[:n_bodies].tolist())
+    body_runs = _bodies_by_kind(branch_graph)
+    branches = _track_branches(_bodies_by_kind(track_graph))
     after_trace = timed_segment()
     n_kfs = packed[n * 16 + 2:n * 20:4].astype(np.int64)
     grew = np.diff(np.concatenate([[n_kfs_before], n_kfs])) > 0
@@ -2982,12 +3138,14 @@ def check_scan_trace(dev, rendered, card: str, fresh: bool = True) -> dict:
     runtime = _runtime_in(prof)
     traced = {key: sum(1 for e in device if name in e.name())
               for key, name in _TRACED_KERNELS.items()}
-    bad = [f for f in per_frame if f["track_b1"] != 3
+    bad = [f for f in per_frame if f["track_b1"] not in (2, 3)
            or f["branch_b1"] != (20 if f["frame"] in lm_frames else 0)]
-    want = 3 * n + 20 * len(lm_frames)
+    track_b1 = sum(f["track_b1"] for f in per_frame)
+    want = 2 * n + branches["retry"] + 20 * len(lm_frames)
     res = dict(
         fresh_process=fresh, frames=[lo, hi - 1], keyframe_frames=kf_frames,
-        local_mapping_frames=lm_frames, body_runs=body_runs, waits=waits, device_copies=copies,
+        local_mapping_frames=lm_frames, body_runs=body_runs, track_branches=branches,
+        track_b1=track_b1, waits=waits, device_copies=copies,
         graph_launches_per_frame=runtime.get("cudaGraphLaunch", 0) / n,
         copies_per_frame=runtime.get("cudaMemcpyAsync", 0) / n,
         kernel_launches_per_frame=runtime.get("cudaLaunchKernel", 0) / n,
@@ -3014,10 +3172,14 @@ def check_scan_trace(dev, rendered, card: str, fresh: bool = True) -> dict:
         raise AssertionError(f"8c: keyframes at {kf_frames}, local mapping at {lm_frames}: "
                              "vacuous")
     _check_bodies(f"8c {where}", body_runs, n, len(kf_frames), len(lm_frames))
+    if branches["replays"] != n or branches["fallback"]:
+        raise AssertionError(f"8c {where}: the tracking graph's bodies ran {branches} in {n} "
+                             "steady frames: one retry body a frame and no fallback expected")
     if not fresh:
         return res
-    if bad:
-        raise AssertionError(f"8c: B1 ran off its count in {bad}")
+    if bad or track_b1 != 2 * n + branches["retry"]:
+        raise AssertionError(f"8c: B1 ran off its count in {bad}, {track_b1} times in the "
+                             f"tracking replays, where the retry body ran {branches['retry']}")
     if traced["window_match"] != want or traced["window_match_merge"] != want:
         raise AssertionError(f"8c: the trace ran B1 {traced}, {want} expected")
     if len(res["branch_kernels_not_keyframe"]) != 1:
@@ -3144,15 +3306,18 @@ def _check_segmented_bodies(name: str, r: dict) -> None:
     frames twice), the nested ones once a keyframe body, and the keyframe
     body on every insertion the final map counts: exactly that many
     without a re-dispatch, at least that many with one (a discarded
-    segment's insertions are not in the final map)."""
+    segment's insertions are not in the final map); and the tracking
+    graph's retry conds once a dispatched frame."""
     runs = r["body_runs"]
     dispatched = (r["frames"] // SEG_LEN + r["re_dispatches"]) * SEG_LEN
     kf = runs.get("d0_True", 0)
     if (kf + runs.get("d0_False", 0) != dispatched
+            or r["track_branches"]["replays"] != dispatched
             or runs.get("d1_True", 0) + runs.get("d1_False", 0) != kf
             or kf < r["inserted"] or (not r["re_dispatches"] and kf != r["inserted"])):
-        raise AssertionError(f"8b {name}: the branch's bodies ran {runs} over {dispatched} "
-                             f"dispatched frames and {r['inserted']} insertions in the final map")
+        raise AssertionError(f"8b {name}: the branch's bodies ran {runs}, the tracking graph's "
+                             f"{r['track_branches']}, over {dispatched} dispatched frames and "
+                             f"{r['inserted']} insertions in the final map")
 
 
 def run_segmented_path(dev, views: dict, card: str, cam: CameraConfig | None = None) -> dict:
@@ -3183,15 +3348,20 @@ def run_segmented_path(dev, views: dict, card: str, cam: CameraConfig | None = N
                 torch.cuda.reset_peak_memory_stats(dev)
                 mem0 = torch.cuda.memory_allocated(dev)
             bodies_before = _body_totals()
+            track_before = _body_totals("TrackStepRunner")
             t = time.perf_counter()
             res = track_sequence_segmented(g, d, run_cfg, vocab=va, segment_len=SEG_LEN,
                                            loop_closer=closer, device=dev)
             wall_s = time.perf_counter() - t
             body_runs = {k: v - bodies_before.get(k, 0) for k, v in _body_totals().items()}
+            track_branches = _track_branches({
+                k: v - track_before.get(k, 0)
+                for k, v in _body_totals("TrackStepRunner").items()})
             n = len(frames) - 1
             n_seg = n // SEG_LEN
             runs[name] = dict(
-                frames=n, body_runs=body_runs, inserted=int(res.carry.state.next_uid) - 1,
+                frames=n, body_runs=body_runs, track_branches=track_branches,
+                inserted=int(res.carry.state.next_uid) - 1,
                 n_loop_events=res.n_loop_events,
                 event_frames=[int(i) + 1 for i in np.nonzero(res.stats[:, 3] >= 0)[0]],
                 corrections=[[int(c[0]), int(c[1]), int(c[2])] for c in res.corrections],
@@ -3423,6 +3593,10 @@ def check_sym_eig(dev, scene: dict, card: str) -> dict:
     _log("9b sym_eig times (ms; `ms` launch to end, `device_ms` the wrapper's work replayed "
          "from a graph, `plain_ms` and `library_ms` torch.linalg.eigh): " + json.dumps(times)
          + f"; card: {card}")
+    if times:
+        _log("9b sym_eig launch to end, this design against the first (shared memory, "
+             "PERF.md): " + ", ".join(f"{k} {t['ms']:.4f} ms against {SYM_EIG_PREV_MS[k]} ms"
+                                      for k, t in times.items()) + f"; card: {card}")
     main = dict(times.get("minimal_sets", {}))
     main.update(max_abs_err=max(r["max_abs_err"] for r in rows[:-1]), checks=rows,
                 refit=times.get("refit"))
@@ -5683,7 +5857,7 @@ def main() -> int:
          f"{json.dumps(dyn['launches'])}; card: {card}")
     main_res = run_main_path(dev, rendered=rendered)
     tracker = main_res.pop("tracker")
-    track_graph = check_track_graph(dev, main_res.pop("track_args"), tracker.cfg, card)
+    track_graph = run_track_graph_check(main_res.pop("track_args"), tracker.cfg, card)
     b2_path = run_b2_path(tracker, dev)
     async_mapping = check_async_mapping(tracker, dev, card)
     async_gate = check_async_gate(dev, main_res["rendered"], card)

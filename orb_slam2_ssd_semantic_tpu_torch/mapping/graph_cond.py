@@ -1,9 +1,10 @@
 """`device_cond`: the port's `lax.cond`, a branch taken on the device.
 
-JAX's scan runs its keyframe branch under `lax.cond`: the program holds
-both branches and the device picks one, so the host never reads the
-predicate. The port's counterpart, while a CUDA graph is being captured
-(`mapping/graphed_step.py::GraphedStep`, inside `capturing`), is a pair
+JAX's scan runs its keyframe branch under `lax.cond`, and its tracking
+step the doubled-window retry and the reference-keyframe fallback: the
+program holds both branches and the device picks one, so the host never
+reads the predicate. The port's counterpart, while a CUDA graph is being
+captured (`mapping/graphed_step.py::GraphedStep`, inside `capturing`), is a pair
 of conditional graph nodes, one on `pred` and one on `not pred` (CUDA
 12.4 nests them), each holding its branch's kernels as a body graph that
 runs only when its predicate is true at replay. The nodes are made by
@@ -94,9 +95,10 @@ class Bodies:
     # (MAX_BODIES,) int64 on the card, made before the capture: slot i
     # counts the runs of body i, which adds one to it first thing.
     runs: torch.Tensor
-    # Per body, in capture order: its nesting depth (0 outermost), whether
-    # it runs where `pred` holds (True) or where it does not, and B1's and
-    # B2's launches recorded in it (a nested body's not included).
+    # Per body, in capture order: its `device_cond`'s name, its nesting
+    # depth (0 outermost), whether it runs where `pred` holds (True) or
+    # where it does not, and B1's and B2's launches recorded in it (a
+    # nested body's not included).
     kernels: list = dataclasses.field(default_factory=list)
     depth: int = 0  # bodies open
     outermost: int = 0  # outermost bodies captured
@@ -165,7 +167,7 @@ def _body_stream(dev: torch.device, depth: int) -> torch.cuda.ExternalStream:
 
 
 @contextlib.contextmanager
-def _if_body(pred: torch.Tensor, taken_on: bool):
+def _if_body(pred: torch.Tensor, taken_on: bool, name: str):
     """Capture into the body of a conditional node on `pred` (the
     `taken_on` branch of a `device_cond`), counting its runs on the card
     and the kernels launched there as conditional."""
@@ -176,7 +178,7 @@ def _if_body(pred: torch.Tensor, taken_on: bool):
     index = len(cap.kernels)
     if index == MAX_BODIES:
         raise RuntimeError(f"device_cond: more than {MAX_BODIES} conditional bodies in one capture")
-    record = dict(depth=cap.depth, taken_on=taken_on, kernels={})
+    record = dict(name=name, depth=cap.depth, taken_on=taken_on, kernels={})
     cap.kernels.append(record)
     outer, body = torch.cuda.current_stream(dev), _body_stream(dev, cap.depth)
     before = dict(cuda_build.captured)
@@ -206,12 +208,13 @@ def _if_body(pred: torch.Tensor, taken_on: bool):
                 record["kernels"][k] = extra
 
 
-def device_cond(pred: torch.Tensor, true_fn, false_fn, operands):
+def device_cond(pred: torch.Tensor, true_fn, false_fn, operands, name: str = ""):
     """`true_fn(operands)` where the 0-d bool tensor `pred` holds, else
     `false_fn(operands)`. `operands` and both results are trees of
     dataclasses and tuples of tensors on `pred`'s device; both results
     have the same shapes and dtypes. The branches must not write into
-    their operands."""
+    their operands. `name` labels the capture's records of its two
+    bodies (`Bodies.kernels`)."""
     if pred.dim() != 0 or pred.dtype != torch.bool:
         raise ValueError(f"device_cond: pred is {pred.dtype} of shape {tuple(pred.shape)}, not a "
                          "0-d bool tensor")
@@ -228,13 +231,13 @@ def device_cond(pred: torch.Tensor, true_fn, false_fn, operands):
         return _rebuild(t_out, iter([a if a is b else torch.where(pred, a, b)
                                      for a, b in zip(t_leaves, f_leaves)]))
     not_pred = torch.logical_not(pred)
-    with _if_body(pred, True):
+    with _if_body(pred, True, name):
         t_out = true_fn(operands)
         # Memory of its own for every output: a leaf the branch passed
         # through (an operand, a tensor made before the conditional) must
         # not take the false branch's copy.
         t_leaves = [x.clone() for x in _tensors(t_out, "true")]
-    with _if_body(not_pred, False):
+    with _if_body(not_pred, False, name):
         f_leaves = _tensors(false_fn(operands), "false")
         _check_alike(t_leaves, f_leaves)
         for a, b in zip(t_leaves, f_leaves):

@@ -6,8 +6,9 @@ the homography DLT's null vector from `jnp.linalg.eigh`
 (`ops/homography.py:34` there), which XLA keeps on the device.
 `torch.linalg.eigh` on the card checks its result on the host after every
 call, a wait that also keeps the flow mask out of a CUDA graph; the
-kernel (cyclic Jacobi, one warp a matrix; see its source) reads nothing
-on the host and allocates nothing.
+kernel (cyclic Jacobi in registers, a matrix's columns and those of its
+eigenvectors in lanes of one warp, exchanged by shuffles; see its source)
+reads nothing on the host and allocates nothing.
 
 `eigh_small(M)` takes M (..., n, n) float32, contiguous, 1 <= n <= 16,
 and returns (eigenvalues (..., n) ascending, eigenvectors (..., n, n) as
@@ -32,6 +33,7 @@ from orb_slam2_ssd_semantic_tpu_torch.ops import cuda_build
 MAX_N = 16
 MAX_SWEEPS = 16  # `kMaxSweeps` in `csrc/sym_eig.cu`
 TOL = 1e-16  # `kTol`: squared off-diagonal norm over squared norm at the stop
+TINY = 2.0**-64  # `kTiny`: a pair whose scaled |a_pq| is no larger is not rotated
 
 
 def _check(M: torch.Tensor) -> int:
@@ -59,26 +61,43 @@ def _round_pairs(m: int, r: int):
     return pairs
 
 
+def _times_pow2(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """x * 2^e for integer exponents e (float32), in two exact factors so
+    that none overflows (|e| <= 149)."""
+    e = e.to(torch.float32)
+    half = torch.trunc(e / 2)
+    return x * torch.exp2(half) * torch.exp2(e - half)
+
+
 def eigh_jacobi_reference(M: torch.Tensor):
     """The kernel's algorithm in float32 PyTorch, batched over the leading
-    dims: the lower triangle mirrored; sweeps of the circle method's rounds,
-    each round's rotations applied to the rows, then to the columns of A
-    and V, then each rotated pair's 2 x 2 block set to its exact result;
-    a sweep starts only while the squared off-diagonal norm exceeds `TOL`
-    of the squared norm (per matrix: a converged one is left as it is),
-    at most `MAX_SWEEPS`; then the diagonal sorted ascending (NaN last,
-    ties by index) with V's columns."""
+    dims: the lower triangle mirrored and scaled by the power of two that
+    puts its largest magnitude in [0.5, 1) (exact); sweeps of the circle
+    method's rounds, each round's rotations (d = a_qq - a_pp, h = 2 a_pq,
+    u = rsqrt(d^2 + h^2), w = (1 + |d| u) / 2, c = sqrt(w), s = sign(d) h u
+    / (2 c), t = s / c, each from the reciprocal root 1 / c = rsqrt(w);
+    none where |a_pq| <= `TINY`) applied to the rows, then to the columns
+    of A and V, then each rotated pair's 2 x 2 block set to its exact
+    result; a matrix sweeps while its squared off-diagonal norm is not at
+    most `TOL` of its squared norm (a stopped one is left as it is), at
+    most `MAX_SWEEPS`; then the diagonal scaled back, sorted ascending (NaN
+    last, ties by index) with V's columns."""
     n = _check(M)
     lead = M.shape[:-2]
     a = torch.tril(M.reshape(-1, n, n))
     a = a + torch.tril(a, -1).transpose(-1, -2)
+    mx = a.abs().amax((-1, -2))
+    e = torch.where((mx > 0) & torch.isfinite(mx), torch.frexp(mx).exponent,
+                    torch.zeros_like(mx, dtype=torch.int32))
+    a = _times_pow2(a, -e[:, None, None])
     v = torch.eye(n, dtype=torch.float32, device=M.device).expand_as(a).clone()
     m = n + (n & 1)
     off_diag = ~torch.eye(n, dtype=torch.bool, device=M.device)
+    run = torch.ones(a.shape[0], dtype=torch.bool, device=M.device)
     for _ in range(MAX_SWEEPS):
         tot = (a * a).sum((-1, -2))
         off = (a * a * off_diag).sum((-1, -2))
-        run = off > TOL * tot  # (B,)
+        run = run & ~(off <= TOL * tot)  # (B,)
         if not bool(run.any()):
             break
         for r in range(m - 1):
@@ -88,13 +107,15 @@ def eigh_jacobi_reference(M: torch.Tensor):
             p = torch.tensor([pq[0] for pq in pairs], device=M.device)
             q = torch.tensor([pq[1] for pq in pairs], device=M.device)
             app, aqq, apq = a[:, p, p], a[:, q, q], a[:, p, q]  # (B, k)
-            rot = (apq != 0) & run[:, None]
-            safe = torch.where(rot, apq, torch.ones_like(apq))
-            tau = (aqq - app) / (2.0 * safe)
-            t = torch.copysign(torch.ones_like(tau), tau) / (tau.abs() + torch.hypot(
-                torch.ones_like(tau), tau))
-            c = torch.where(rot, 1.0 / torch.sqrt(t * t + 1.0), torch.ones_like(t))
-            s = torch.where(rot, t * c, torch.zeros_like(t))
+            rot = ~(apq.abs() <= TINY) & run[:, None]
+            d, h = aqq - app, 2.0 * apq
+            u = torch.rsqrt(d * d + h * h)
+            w = 0.5 * (d.abs() * u) + 0.5
+            rc = torch.rsqrt(w)  # 1 / c
+            sp = 0.5 * (torch.where(d >= 0, h, -h) * u) * rc
+            t = sp * rc
+            c = torch.where(rot, w * rc, torch.ones_like(t))
+            s = torch.where(rot, sp, torch.zeros_like(t))
             dpp, dqq = app - t * apq, aqq + t * apq
             x, y = a[:, p, :], a[:, q, :]  # rows
             a[:, p, :] = c[..., None] * x - s[..., None] * y
@@ -108,7 +129,7 @@ def eigh_jacobi_reference(M: torch.Tensor):
             a[:, q, q] = torch.where(rot, dqq, a[:, q, q])
             a[:, p, q] = torch.where(rot, zero, a[:, p, q])
             a[:, q, p] = torch.where(rot, zero, a[:, q, p])
-    lam = torch.diagonal(a, dim1=-2, dim2=-1)
+    lam = _times_pow2(torch.diagonal(a, dim1=-2, dim2=-1), e[:, None])
     key = torch.where(torch.isnan(lam), torch.full_like(lam, math.inf), lam)
     order = torch.sort(key, dim=-1, stable=True).indices
     w = torch.gather(lam, -1, order)

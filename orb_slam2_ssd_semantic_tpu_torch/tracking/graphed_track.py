@@ -3,12 +3,16 @@ keyframe insertion as another: `InsertKeyframeRunner`.
 
 JAX compiles `fused_track_step` into one program, and the host makes one
 small transfer a frame, the packed stats (`Tracker.process`). The port's
-step has no host read either (`tracking/tracker.py`: the doubled-window
-retry and the reference-keyframe fallback are selects), so the runner
-captures it into a CUDA graph (`mapping/graphed_step.py::GraphedStep`)
-and replays it every frame: a tracked frame costs the host its two image
-uploads, the copies into the graph's inputs, one `cudaGraphLaunch` and the
-stats fetch, where the eager step made ~12,000 launches.
+step has no host read either, so the runner captures it into a CUDA graph
+(`mapping/graphed_step.py::GraphedStep`) and replays it every frame: a
+tracked frame costs the host its two image uploads, the copies into the
+graph's inputs, one `cudaGraphLaunch` and the stats fetch, where the
+eager step made ~12,000 launches. JAX's two `lax.cond`s in the step (the
+doubled-window retry, the reference-keyframe fallback) are
+`mapping/graph_cond.py::device_cond`s (`tracking/tracker.py`), so the
+graph holds four conditional bodies, the retry and its pass-through, the
+fallback and its pass-through, and a frame runs only the bodies its
+predicates name (`GraphedStep.body_runs` counts each on the card).
 
 One graph per (configuration, with a dynamic mask or not, with
 pre-extracted features or not), as JAX compiles one program per static
@@ -93,10 +97,12 @@ class TrackStepRunner(GraphRunner):
 
     def stats(self, cfg: SlamConfig, static_mask=None, feats=None) -> dict:
         """That graph's capture: host ms, private pool bytes, replays, and
-        launches by kernel that it recorded."""
+        launches by kernel that it recorded outside and inside its
+        conditional bodies, with each body's record (`GraphedStep.bodies`)."""
         g = self._captured[self._key(cfg, static_mask, feats)]
         return dict(capture_ms=g.capture_ms, pool_bytes=g.pool_bytes, replays=g.replays,
-                    captured=dict(g.captured))
+                    captured=dict(g.captured), conditional=dict(g.conditional),
+                    bodies=g.bodies)
 
     @precision.scoped
     def capture(self, state: SlamState, gray, depth_img, last_frame: tk.Frame, last_T_cw,

@@ -6,12 +6,14 @@ loop closing (`mapping/loop_closing.py`) and local mapping per keyframe
 and relocalizes a LOST frame (`tracking/reloc.py`).
 
 The tracking step (`fused_track_step`) never reads the card on the host:
-JAX's `lax.cond`s in it (the doubled-window retry, the reference-keyframe
-fallback) are selects between both branches, computed every frame, and
-the frame counter and reference inlier count enter as device scalars.
-`Tracker.process` replays it from the tracker's `TrackStepRunner`
-(`tracking/graphed_track.py`): on the card one CUDA graph per kind of
-frame, captured at the first tracked frame (stage `track.capture`), and
+JAX's two `lax.cond`s in it (the doubled-window retry, the
+reference-keyframe fallback) are `mapping/graph_cond.py::device_cond`s,
+conditional nodes of the step's CUDA graph whose bodies run only on the
+frames that take them, and the frame counter and reference inlier count
+enter as device scalars. `Tracker.process` replays it from the tracker's
+`TrackStepRunner` (`tracking/graphed_track.py`): on the card one CUDA
+graph per kind of frame, captured at the first tracked frame (stage
+`track.capture`), and
 a tracked frame then makes its two image uploads, the copies into the
 graph's inputs, one `cudaGraphLaunch` and one fetch of the packed stats
 (stage `track`), as JAX's compiled step makes one transfer. Local mapping
@@ -58,6 +60,7 @@ from orb_slam2_ssd_semantic_tpu_torch.config import SlamConfig
 from orb_slam2_ssd_semantic_tpu_torch.frontend.extractor import Features, extract, scale_factors
 from orb_slam2_ssd_semantic_tpu_torch.geometry import camera as cam_ops
 from orb_slam2_ssd_semantic_tpu_torch.geometry import se3
+from orb_slam2_ssd_semantic_tpu_torch.mapping.graph_cond import device_cond
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import (
     SlamState,
     alloc_slots,
@@ -176,13 +179,11 @@ def track_motion_model(frame: Frame, last_frame: Frame, last_T_cw, T_pred, cfg: 
             lf.desc, frame.feats.desc, centers, frame.feats.uv, vis, frame.feats.valid, r,
             angle_q=lf.angle, angle_t=frame.feats.angle, max_dist=match_ops.TH_HIGH)
 
-    # The doubled-window retry (JAX's `lax.cond`) as a select on the card:
-    # both windows are matched, the second kept when the first is thin.
-    m1, m2 = match_r(radius), match_r(2.0 * radius)
+    # The doubled-window retry when the first window is thin (JAX's
+    # `lax.cond`): only a frame that needs it matches the second window.
+    m1 = match_r(radius)
     thin = m1.valid.sum() < cfg.tracking.min_matches_track
-    m = match_ops.MatchResult(torch.where(thin, m2.idx, m1.idx),
-                              torch.where(thin, m2.dist, m1.dist),
-                              torch.where(thin, m2.valid, m1.valid))
+    m = device_cond(thin, lambda _: match_r(2.0 * radius), lambda _: m1, (), name="retry")
     res, _ = _pose_from_matches(T_pred, pts_w, frame, m, cfg)
     return res.T_cw, m.valid.sum(), res.num_inliers
 
@@ -398,9 +399,10 @@ def fused_track_step(state: SlamState, gray, depth_img, last_frame: Frame, last_
     float32.
 
     Nothing in it reads the card on the host: JAX's two `lax.cond`s (the
-    doubled-window retry, the reference-keyframe fallback) are selects
-    between both branches, computed every frame, so one CUDA graph holds
-    the step (`tracking/graphed_track.py`)."""
+    doubled-window retry, the reference-keyframe fallback) are
+    `device_cond`s, so one CUDA graph holds the step
+    (`tracking/graphed_track.py`) and a frame runs only the branches it
+    takes; on the CPU each predicate is read on the host."""
     t = cfg.tracking
     dev = last_T_cw.device
     if not isinstance(frames_since_kf, torch.Tensor):
@@ -415,10 +417,11 @@ def fused_track_step(state: SlamState, gray, depth_img, last_frame: Frame, last_
         map_valid=state.points.valid, last_kp_point=last_kp_point)
     mm_jump = torch.linalg.norm(T_mm[:3, 3] - T_pred[:3, 3])
     ok_mm = (n_inl_mm >= t.min_inliers_track) & (mm_jump < 0.5)
-    # The reference-keyframe fallback runs every frame (JAX's `lax.cond`
-    # runs it where the motion model failed): `ok_ref` and `T_seed` take
-    # it only there.
-    T_ref, n_inl_ref = track_reference_kf(state, frame, last_T_cw, cfg)
+    # The reference-keyframe fallback where the motion model failed (JAX's
+    # `lax.cond`); where it held, the motion model's own result.
+    T_ref, n_inl_ref = device_cond(
+        ok_mm, lambda _: (T_mm, n_inl_mm),
+        lambda _: track_reference_kf(state, frame, last_T_cw, cfg), (), name="fallback")
     ok_ref = (~ok_mm) & (n_inl_ref >= t.min_inliers_track)
     ok_pre = ok_mm | ok_ref
     T_seed = torch.where(ok_mm, T_mm, torch.where(ok_ref, T_ref, T_pred))

@@ -4,9 +4,10 @@ the predicate is the one value read on the host (`predicate_on_host`,
 which the host-read trap lets through and counts). Inside a
 `GraphedStep` (`mapping/graphed_step.py`) the CPU path writes the same
 output buffers whichever branch is taken, as a replay of the captured
-conditional nodes does. The card's two paths (both branches and a
-select during a graph's warm-up, conditional nodes in its capture) run
-in `chip_smoke.py` phase 8c."""
+conditional nodes does, with a nested cond and with two sibling conds
+in one step (the tracking step's retry and fallback). The card's two
+paths (both branches and a select during a graph's warm-up, conditional
+nodes in its capture) run in `chip_smoke.py` phases 4, 4b and 8."""
 
 import dataclasses
 
@@ -77,4 +78,42 @@ def test_graphed_step_writes_the_same_buffers_whichever_branch_runs():
         assert all(x is y for x, y in zip(out, buffers))
         assert torch.equal(got.a, want.a) and torch.equal(got.b, want.b)
         assert all(torch.equal(t, x) for t, x in zip(out, (got.a, got.b)))
+        assert not {got.a.data_ptr(), got.b.data_ptr()} & {t.data_ptr() for t in out}
+
+
+def siblings(first: torch.Tensor, second: torch.Tensor, op: Pair) -> Pair:
+    """Two conds one after the other, as the tracking step's retry and
+    fallback: a = first ? 2a : a (passed through); then second ? a + sum(b)
+    : op's own a - 1, the second reading the first's output."""
+    a = device_cond(first, lambda p: p.a * 2, lambda p: p.a, op, name="first")
+    b = device_cond(second, lambda _: a + op.b.sum(), lambda _: op.a - 1, (), name="second")
+    return Pair(a, b)
+
+
+def test_graphed_step_with_sibling_conds_equals_the_eager_step():
+    """A step of two sibling conds in a `GraphedStep` on the CPU: over the
+    four predicate pairs it equals the eager step, reads the two
+    predicates and nothing else on the host, keeps its output buffers and
+    returns fresh tensors; the operands stay as they were."""
+    def args_of(first, second):
+        return (torch.tensor(first), torch.tensor(second),
+                Pair(torch.arange(4, dtype=torch.float32) - float(first), torch.tensor([5.0, 7.0])))
+
+    step = GraphedStep(lambda x: siblings(*x), args_of(True, True), CPU, "sibling step", "x")
+    buffers = None
+    for first, second in ((True, True), (False, True), (True, False), (False, False)):
+        args = args_of(first, second)
+        a0 = args[2].a.clone()
+        with host_reads_trapped(allowed=[(graph_cond, "predicate_on_host")]) as reads:
+            got = step(args)
+        assert reads == {"predicate_on_host": 2}
+        want_a = a0 * 2 if first else a0
+        want_b = want_a + 12.0 if second else a0 - 1
+        assert torch.equal(got.a, want_a) and torch.equal(got.b, want_b)
+        eager = siblings(*args)
+        assert torch.equal(got.a, eager.a) and torch.equal(got.b, eager.b)
+        assert torch.equal(args[2].a, a0)
+        out = [t for _, t in state_leaves(step.out, "out")]
+        buffers = buffers or out
+        assert all(x is y for x, y in zip(out, buffers))
         assert not {got.a.data_ptr(), got.b.data_ptr()} & {t.data_ptr() for t in out}

@@ -17,6 +17,12 @@ Gates, and why:
   the homography from the Jacobi null vector within 1e-4 of JAX's `_dlt`
   (relative to its largest entry) where the null vector is so separated,
   the limit of `test_torch_dynamic.py::test_dlt_matches_jax`;
+- the kernel's pair table (the circle method's rounds, `_round_pairs`):
+  each round's pairs disjoint, every pair once a sweep, for n = 1-16;
+- its power-of-two scaling: M times 2^k gives 2^k times the eigenvalues
+  and the same eigenvectors, bit for bit (the scaling is exact), and at
+  1e-30 and 1e30 (where d^2 + h^2 unscaled would underflow or overflow)
+  the Jacobi model holds the limits above;
 - the minimal sets' uniforms: one tensor, made once;
 - both masks (the flow mask with its own minimal sets), and both
   `MaskRunner` steps, with every host read trapped: none;
@@ -182,6 +188,37 @@ def test_jacobi_on_degenerate_sets_and_its_homography_against_jax():
                    for s, d in zip(src[32:].numpy(), dst[32:].numpy())])
     err = np.abs(H[32:].numpy() - Hj).max((-1, -2)) / np.abs(Hj).max((-1, -2))
     assert err.max() <= H_TOL, err.max()
+
+
+@pytest.mark.parametrize("n", range(1, 17))
+def test_jacobi_rounds_rotate_every_pair_once_a_sweep(n):
+    m = n + (n & 1)
+    seen = []
+    for r in range(m - 1):
+        pairs = [(p, q) for p, q in cuda_eigh._round_pairs(m, r) if q < n]
+        flat = [i for pq in pairs for i in pq]
+        assert len(flat) == len(set(flat)) and all(p < q for p, q in pairs), (r, pairs)
+        seen += pairs
+    assert sorted(seen) == [(p, q) for p in range(n) for q in range(p + 1, n)]
+
+
+def test_jacobi_scaling_is_exact_and_keeps_extreme_magnitudes():
+    rng = np.random.default_rng(2)
+    A = rng.standard_normal((32, 9, 9)).astype(np.float32)
+    M = torch.from_numpy(A @ A.transpose(0, 2, 1))
+    w, v = cuda_eigh.eigh_jacobi_reference(M)
+    for k in (-100, -30, 30, 100):
+        wk, vk = cuda_eigh.eigh_jacobi_reference(M * 2.0**k)
+        assert torch.equal(wk, w * 2.0**k) and torch.equal(vk, v), k
+    for scale in (1e-30, 1e30):  # held in float64, whose squares do not leave its range
+        Ms = (M * scale).contiguous()
+        ws, vs = cuda_eigh.eigh_jacobi_reference(Ms)
+        wr, vr = torch.linalg.eigh(Ms.double())
+        err = (ws.double() - wr).abs().amax(-1) / torch.linalg.norm(Ms.double(), dim=(-1, -2))
+        assert float(err.max()) <= EIG_TOL, (scale, float(err.max()))
+        held = _rel_gaps(wr) > GAP
+        off = torch.where(held, 1 - (vs.double() * vr).sum(-2).abs(), torch.zeros_like(wr))
+        assert bool(held.any()) and float(off.max()) <= VEC_TOL, (scale, float(off.max()))
 
 
 def test_minimal_set_uniforms_are_made_once():

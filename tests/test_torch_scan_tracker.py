@@ -297,7 +297,8 @@ def test_scan_reads_nothing_on_the_host_but_the_predicates(runs):
     """Frames 1-6 from the initial carry (keyframes at 3 and 6, local
     mapping at 6, detection at both) with every host read trapped: the
     tracking step and the keyframe branch read nothing but `device_cond`'s
-    predicate (need_kf every frame, n_kfs >= 3 at each keyframe), and the
+    predicates (the step's retry and fallback and the branch's need_kf
+    every frame, n_kfs >= 3 at each keyframe), and the
     frames equal the fixture's scan bit for bit. The branch returns the
     carry's shapes and dtypes whichever way it goes (the card's
     conditional nodes copy one branch's outputs into the other's)."""
@@ -305,7 +306,7 @@ def test_scan_reads_nothing_on_the_host_but_the_predicates(runs):
     with host_reads_trapped(allowed=[(graph_cond, "predicate_on_host")]) as reads:
         c, T, stats, rel, uid = tst.track_sequence_scan(runs.tc0, g, d, runs.tcfg,
                                                         vocab=runs.tva, with_rel=True)
-    assert reads == {"predicate_on_host": 6 + 2}
+    assert reads == {"predicate_on_host": 2 * 6 + 6 + 2}
     assert torch.equal(T, torch.from_numpy(runs.tT[:6]))
     assert torch.equal(stats, torch.from_numpy(runs.tstats[:6]))
     assert torch.equal(uid, torch.from_numpy(runs.tuid[:6]))

@@ -15,15 +15,19 @@ test's gate.
 
 The per-frame step (`fused_track_step`) and its CUDA-graph runner
 (`tracking/graphed_track.py::TrackStepRunner`): the port's step runs
-with every host read trapped and equals JAX's on the same numpy inputs
-(the JAX tracker's state before the last frame, and that frame) on three
-frames: as tracked (the motion model decides), with the predicted pose
-pushed 0.6 m sideways (the motion model finds nothing and the
-reference-keyframe fallback decides) and with the motion model's window
-cut to 0.08 px (the first window keeps under `min_matches_track` matches
-and the doubled-window retry decides): statuses and keyframe decisions equal,
+with every host read trapped but its two `device_cond` predicates (the
+doubled-window retry's and the reference-keyframe fallback's, JAX's
+`lax.cond`s) and equals JAX's on the same numpy inputs (the JAX
+tracker's state before the last frame, and that frame) on three frames:
+as tracked (the motion model decides), with the predicted pose pushed
+0.6 m sideways (the motion model finds nothing and the reference-keyframe
+fallback decides) and with the motion model's window cut to 0.08 px (the
+first window keeps under `min_matches_track` matches and the
+doubled-window retry decides): statuses and keyframe decisions equal,
 inlier and match counts within 1, poses within 1e-4 (extraction rounds
-a few pyramid pixels the other way, `tests/test_torch_divergence_7c.py`).
+a few pyramid pixels the other way, `tests/test_torch_divergence_7c.py`);
+and only the branches taken run: 2 window matches as tracked, 3 with the
+retry, 2 and one fallback call with the fallback.
 `Tracker.process` runs the runner's CPU path, which must equal the
 eager step bit for bit on every frame of the port's run, leave what it
 returned alone at the next step, refuse arguments of other shapes
@@ -46,6 +50,7 @@ from orb_slam2_ssd_semantic_tpu.tracking import tracker as jtk
 from orb_slam2_ssd_semantic_tpu.tracking.tracker import Tracker as JTracker
 from orb_slam2_ssd_semantic_tpu_torch.eval.ate import evaluate_ate_xyz
 from orb_slam2_ssd_semantic_tpu_torch.frontend.extractor import Features as TFeatures
+from orb_slam2_ssd_semantic_tpu_torch.mapping import graph_cond
 from orb_slam2_ssd_semantic_tpu_torch.mapping.graphed_step import state_leaves
 from orb_slam2_ssd_semantic_tpu_torch.mapping.map_state import state_from_numpy
 from orb_slam2_ssd_semantic_tpu_torch.tracking import tracker as ttk
@@ -187,20 +192,26 @@ def _pushed(velocity: np.ndarray, metres: float) -> np.ndarray:
 
 @pytest.fixture(scope="module")
 def step_cases(runs, recorded):
-    """{case: (JAX's packed stats, the port's, the port's window match
-    counts)} for the last frame from the JAX tracker's inputs before it,
-    as tracked ("ok"), with the velocity pushed 0.6 m ("fallback") and
+    """{case: (JAX's packed stats, the port's, the valid matches of each of
+    the port's window matches, its reference-keyframe fallback calls, its
+    host reads)} for the last frame from the JAX tracker's inputs before
+    it, as tracked ("ok"), with the velocity pushed 0.6 m ("fallback") and
     with the motion model's window cut ("retry"). The port's step runs
-    with every host read trapped; the match counts are read after it."""
+    with every host read trapped but `device_cond`'s predicates; the
+    match counts are read after it."""
     jstate, jframe, last_T_cw, last_kp_point, velocity, since_kf, ref_inl = recorded["jax_inputs"]
     gray, depth = recorded["last_frame"]
-    counts = []
-    match = ttk.match_ops.match_by_window
+    counts, fallbacks = [], []
+    match, reference_kf = ttk.match_ops.match_by_window, ttk.track_reference_kf
 
     def counted(*args, **kwargs):
         m = match(*args, **kwargs)
         counts.append(m.valid.sum())
         return m
+
+    def fallback(*args, **kwargs):
+        fallbacks.append(1)
+        return reference_kf(*args, **kwargs)
 
     out = {}
     for case, vel, cut in (("ok", velocity, False), ("fallback", _pushed(velocity, 0.6), False),
@@ -218,13 +229,16 @@ def step_cases(runs, recorded):
                   torch.from_numpy(last_kp_point.astype(np.int64)), torch.from_numpy(vel),
                   torch.tensor(since_kf), torch.tensor(ref_inl), tcfg)
         counts.clear()
-        ttk.match_ops.match_by_window = counted
+        fallbacks.clear()
+        ttk.match_ops.match_by_window, ttk.track_reference_kf = counted, fallback
         try:
-            with highest_precision(), host_reads_trapped():
+            with highest_precision(), host_reads_trapped(
+                    allowed=[(graph_cond, "predicate_on_host")]) as reads:
                 packed_t = ttk.fused_track_step(*t_args)[-1]
         finally:
-            ttk.match_ops.match_by_window = match
-        out[case] = (np.asarray(packed_j), packed_t.numpy(), [int(c) for c in counts])
+            ttk.match_ops.match_by_window, ttk.track_reference_kf = match, reference_kf
+        out[case] = (np.asarray(packed_j), packed_t.numpy(), [int(c) for c in counts],
+                     len(fallbacks), dict(reads))
     return out
 
 
@@ -234,22 +248,39 @@ def _tree_of(state):
     return np.asarray(state)
 
 
+# What runs in each case: the window matches (the motion model's first
+# window, the doubled-window retry where the first was thin, local-map
+# tracking) and the reference-keyframe fallback's calls.
+RUNS = {"ok": (2, 0), "fallback": (2, 1), "retry": (3, 0)}
+
+
 @pytest.mark.parametrize("case", ["ok", "fallback", "retry"])
 def test_track_step_matches_jax_with_host_reads_trapped(step_cases, case):
-    pj, pt, counts = step_cases[case]
+    pj, pt, counts, fallbacks, reads = step_cases[case]
     tcfg = small_config(tconfig)
     np.testing.assert_array_equal(pt[16:18], pj[16:18])  # status, need_kf
     np.testing.assert_allclose(pt[18:], pj[18:], atol=1, rtol=0)  # inliers, matches, mm inliers
     np.testing.assert_allclose(pt[:16], pj[:16], atol=1e-4, rtol=0)
     assert pj[16] == 0, "the frame did not track: vacuous"
-    first, doubled = counts[:2]
+    first = counts[0]
     ok_mm_inliers = pj[20] >= tcfg.tracking.min_inliers_track
     if case == "ok":
         assert ok_mm_inliers and first >= tcfg.tracking.min_matches_track
     elif case == "fallback":
         assert not ok_mm_inliers, "the motion model held: the fallback did not decide"
     else:
-        assert first < tcfg.tracking.min_matches_track <= doubled, counts
+        assert first < tcfg.tracking.min_matches_track <= counts[1], counts
+
+
+@pytest.mark.parametrize("case", ["ok", "fallback", "retry"])
+def test_track_step_runs_only_the_branches_taken(step_cases, case):
+    """The doubled-window retry and the reference-keyframe fallback are
+    `device_cond`s: on the CPU each reads its predicate on the host (the
+    step's only two host reads) and runs the branch it names alone, as
+    JAX's `lax.cond` does."""
+    _, _, counts, fallbacks, reads = step_cases[case]
+    assert (len(counts), fallbacks) == RUNS[case], (counts, fallbacks)
+    assert reads == {"predicate_on_host": 2}
 
 
 def test_track_runner_equals_the_eager_step(runs, recorded):
